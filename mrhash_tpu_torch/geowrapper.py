@@ -1,0 +1,286 @@
+"""GeoWrapper: the user-facing API of the port.
+
+Same constructor arguments and method names as mrhash_tpu/geowrapper.py
+(the reference's bound class, geowrapper.{h,cpp}), for the
+single-resolution RGB-D path: setCamera / setCurrPose / setDepthImage /
+setRGBImage / compute, then streamAllOut / extractMesh / serializeData /
+clearBuffers.  Every frame runs eagerly on `device` ("cuda" by default).
+Out of this slice, and raising instead of skipping: LiDAR input, 3D Gaussian
+Splatting, multi-resolution (sdf_var_threshold > 0), the viewer thread, and
+streaming triggered by the heap watermark (ROADMAP A8).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from mrhash_tpu import native
+from mrhash_tpu import params as P
+from mrhash_tpu.core import mesh_post
+from mrhash_tpu.utils import plyio
+from mrhash_tpu.utils.profiler import Profiler
+from mrhash_tpu_torch.core import pipeline
+from mrhash_tpu_torch.core.state import MapConfig, make_state
+from mrhash_tpu_torch.core.streaming import ChunkGrid, Streamer
+from mrhash_tpu_torch.ops import camera as C
+
+
+def _quat_to_rot(qx, qy, qz, qw):
+    """Quaternion (x,y,z,w) -> rotation matrix (setCurrPose,
+    geowrapper.cpp:86-92)."""
+    n = np.sqrt(qx * qx + qy * qy + qz * qz + qw * qw)
+    qx, qy, qz, qw = qx / n, qy / n, qz / n, qw / n
+    return np.array([
+        [1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qz * qw),
+         2 * (qx * qz + qy * qw)],
+        [2 * (qx * qy + qz * qw), 1 - 2 * (qx * qx + qz * qz),
+         2 * (qy * qz - qx * qw)],
+        [2 * (qx * qz - qy * qw), 2 * (qy * qz + qx * qw),
+         1 - 2 * (qx * qx + qy * qy)]], np.float32)
+
+
+def _device_free_bytes(device: torch.device, default=8 << 30):
+    """cudaMemGetInfo (geowrapper.cpp:37-42); the CPU test device has no
+    such budget and takes the reference's 8 GiB default."""
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[0]
+    return default
+
+
+def _round_up_pow2(x):
+    return 1 << max(int(x) - 1, 1).bit_length()
+
+
+class GeoWrapper:
+    """PyTorch GeoWrapper (reference: geowrapper.h:18-260)."""
+
+    def __init__(self,
+                 sdf_truncation: float,
+                 sdf_truncation_scale: float,
+                 integration_weight_sample: int,
+                 virtual_voxel_size: float,
+                 n_frames_invalidate_voxels: int,
+                 voxel_extents_scale: int,
+                 viewer_active: bool = False,
+                 marching_cubes_threshold: float = 1.5,
+                 min_weight_threshold: int = 1,
+                 min_depth: float = 0.01,
+                 max_depth: float = 30.0,
+                 gs_optimization_param_path: str =
+                 P.DEFAULT_GS_OPTIMIZATION_PARAM_PATH,
+                 sdf_var_threshold: float = P.DEFAULT_SDF_VAR_THRESHOLD,
+                 vertices_merging_threshold: float =
+                 P.DEFAULT_VERTICES_MERGING_THRESHOLD,
+                 projective_sdf: bool = P.DEFAULT_PROJECTIVE_SDF,
+                 num_blocks: int | None = None,
+                 max_active_blocks: int | None = None,
+                 max_alloc_per_frame: int = 1 << 14,
+                 num_buckets: int = 0,
+                 profiling: bool = True,
+                 device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("GeoWrapper(device='cuda'): CUDA is not "
+                               "available (pass device='cpu' for the plain "
+                               "PyTorch path)")
+        if viewer_active:
+            raise NotImplementedError("viewer_active: not ported yet")
+        if gs_optimization_param_path:
+            raise NotImplementedError("3D Gaussian Splatting: not ported yet")
+        if sdf_var_threshold > 0.0:
+            raise NotImplementedError("multi-resolution (sdf_var_threshold "
+                                      "> 0): not ported yet")
+        # projective_sdf only steers the LiDAR update; RGB-D ignores it, as
+        # in the reference
+        del projective_sdf
+        to_alloc = _device_free_bytes(self.device) * P.SDF_BLOCKS_RATIO
+        if num_blocks is None:
+            num_blocks = int(to_alloc * P.SDF_BLOCKS_RATIO
+                             / (P.VOXEL_NBYTES * P.TOTAL_SDF_BLOCK_SIZE))
+            num_blocks = min(_round_up_pow2(num_blocks), 1 << 20)
+        if max_active_blocks is None:
+            max_active_blocks = min(num_blocks, 1 << 17)
+        self.cfg = MapConfig(
+            alloc_tile=4,
+            virtual_voxel_size=float(virtual_voxel_size),
+            voxel_extents=(float(voxel_extents_scale),) * 3,
+            sdf_truncation=float(sdf_truncation),
+            sdf_truncation_scale=float(sdf_truncation_scale),
+            integration_weight_sample=int(integration_weight_sample),
+            max_integration_distance=float(max_depth),
+            n_frames_invalidate_voxels=int(n_frames_invalidate_voxels),
+            min_weight_threshold=int(min_weight_threshold),
+            marching_cubes_threshold=float(marching_cubes_threshold),
+            vertices_merging_threshold=float(vertices_merging_threshold),
+            num_blocks=int(num_blocks),
+            num_buckets=int(num_buckets),
+            max_active_blocks=int(max_active_blocks),
+            max_alloc_per_frame=int(max_alloc_per_frame))
+        self.state = make_state(self.cfg.num_blocks,
+                                self.cfg.num_buckets or None, self.device)
+        self.streamer = Streamer(self.cfg)
+        self.mesh = mesh_post.MeshAccumulator(vertices_merging_threshold)
+        self.camera = C.make_camera(1.0, 1.0, 0.0, 0.0, 1, 1, min_depth,
+                                    max_depth, device=self.device)
+        self.curr_rot = np.eye(3, dtype=np.float32)
+        self.curr_trans = np.zeros(3, np.float32)
+        self._depth_img = None
+        self._rgb_img = None
+        self._high_free = self.cfg.num_blocks
+        self.last_stats = None
+        self.integration_profiler = Profiler("integration_profiler",
+                                             profiling)
+
+    # ------------------------------------------------------------------ inputs
+    def setCamera(self, fx, fy, cx, cy, rows, cols, min_depth, max_depth,
+                  camera_model=0):
+        if int(camera_model) != C.PINHOLE:
+            raise NotImplementedError("spherical (LiDAR) camera: not ported")
+        self.camera = C.make_camera(fx, fy, cx, cy, rows, cols, min_depth,
+                                    max_depth, device=self.device)
+        # max integration distance follows the camera (geowrapper.cpp:111)
+        self.cfg = dataclasses.replace(
+            self.cfg, max_integration_distance=float(max_depth))
+
+    def setCurrPose(self, pose, orientation):
+        """pose: (3,) translation; orientation: (4,) quaternion x,y,z,w."""
+        q = np.asarray(orientation, np.float64).reshape(4)
+        self.curr_rot = _quat_to_rot(q[0], q[1], q[2], q[3])
+        self.curr_trans = np.asarray(pose, np.float32).reshape(3)
+
+    def setDepthImage(self, depth):
+        """depth: [H,W] metric depth (numpy or a torch tensor)."""
+        depth = torch.as_tensor(depth, dtype=torch.float32)
+        if depth.dim() != 2:
+            raise ValueError("setDepthImage: expected a 2D array")
+        self._depth_img = depth
+
+    def setRGBImage(self, rgb):
+        """rgb: [H,W,3] uint8 (numpy or a torch tensor)."""
+        if not isinstance(rgb, torch.Tensor):
+            rgb = torch.from_numpy(np.asarray(rgb, np.uint8))
+        rgb = rgb.to(torch.uint8)
+        if rgb.dim() != 3 or rgb.shape[2] != 3:
+            raise ValueError("setRGBImage: expected an HxWx3 uint8 array")
+        self._rgb_img = rgb
+
+    def setPointCloud(self, points, arg2=False):
+        raise NotImplementedError("LiDAR input: not ported yet (ROADMAP A10)")
+
+    # ------------------------------------------------------------------ compute
+    def compute(self):
+        """Per-frame step (geowrapper.cpp:118-148)."""
+        if self._high_free <= P.STREAM_THRESHOLD * self.cfg.num_blocks:
+            raise NotImplementedError(
+                f"GeoWrapper.compute: {self._high_free} free blocks of "
+                f"{self.cfg.num_blocks} reached the stream-out watermark; "
+                "streaming is not ported yet (ROADMAP A8) — raise num_blocks")
+        if self._depth_img is None or self._rgb_img is None:
+            return
+        cam = C.with_pose(self.camera, self.curr_rot, self.curr_trans)
+        with self.integration_profiler.event():
+            self.state, stats = pipeline.integrate_rgbd(
+                self.cfg, self.state, cam, self._depth_img.to(self.device),
+                self._rgb_img.to(self.device))
+        self.last_stats = stats
+        self._high_free = stats["high_free"]
+        self.integration_profiler.write(stats["occupied_blocks"])
+
+    # ------------------------------------------------------------------ meshing
+    def extractMesh(self, filename: str):
+        """Host-native extractMesh (native/mrhash_mesh.cpp, the reference
+        package's read-only path): snapshot the device blocks over a copy of
+        the host chunk grid, run the Transvoxel sweep on the host, write an
+        ASCII PLY.  The device map stays live."""
+        if native.load() is None:
+            raise RuntimeError("extractMesh: the native host library "
+                               "(mrhash_tpu.native) did not load")
+        snap = ChunkGrid(np.asarray(self.cfg.voxel_extents, np.float32))
+        snap.chunks = dict(self.streamer.grid.chunks)
+        self.streamer.snapshot_into(self.state, snap, mesh_only=True)
+        self.mesh.reset()
+        groups = list(snap.chunks.values())
+        if groups:
+            cat = {k: np.concatenate([g[k] for g in groups])
+                   for k in ("pos", "res", "sdf", "w", "rgb")}
+            out = native.extract_mesh_host(
+                cat["pos"], cat["res"], cat["sdf"], cat["w"], cat["rgb"],
+                self.cfg.virtual_voxel_size, self.cfg.voxel_extents,
+                self.cfg.marching_cubes_threshold,
+                self.cfg.min_weight_threshold)
+            if out is None:
+                raise RuntimeError("extractMesh: native sweep unavailable")
+            tri_pos, tri_col = out
+            if tri_pos.shape[0] > 0:
+                self.mesh.add_triangles(tri_pos, tri_col)
+        plyio.write_mesh_ply(filename, self.mesh.vertices, self.mesh.faces,
+                             self.mesh.colors)
+        print(f"GeoWrapper::extractMesh | written "
+              f"{self.mesh.vertices.shape[0]} vertices and "
+              f"{self.mesh.faces.shape[0]} faces to {filename}")
+
+    # ------------------------------------------------------------------ persistence
+    def streamAllOut(self):
+        self.state = self.streamer.stream_all_out(self.state)
+        self._high_free = self.state.table.high_count
+
+    def clearBuffers(self):
+        """geowrapper.cpp clearBuffers: evict + drop the host grid."""
+        self.streamAllOut()
+        self.streamer.grid.chunks = {}
+        self.streamer.print_statistics()
+
+    def serializeData(self, filename_hash="./data/hash_points.ply",
+                      filename_voxel="./data/voxel_points.ply"):
+        self.streamer.serialize_data(filename_hash, filename_voxel)
+
+    # ------------------------------------------------------------------ getters
+    def getHashNumBuckets(self):
+        return self.state.table.num_buckets
+
+    def getNumSdfBlocks(self):
+        return self.cfg.num_blocks
+
+    def getHashBucketSize(self):
+        return P.HASH_BUCKET_SIZE
+
+    def getSdfTruncation(self):
+        return self.cfg.sdf_truncation
+
+    def getSdfTruncationScale(self):
+        return self.cfg.sdf_truncation_scale
+
+    def getIntegrationWeightSample(self):
+        return self.cfg.integration_weight_sample
+
+    def getIntegrationWeightMax(self):
+        return self.cfg.integration_weight_max
+
+    def getVirtualVoxelSize(self):
+        return self.cfg.virtual_voxel_size
+
+    def getLinkedListSize(self):
+        return P.LINKED_LIST_SIZE
+
+    def getNFramesInvalidateVoxels(self):
+        return self.cfg.n_frames_invalidate_voxels
+
+    def getVoxelExtentsScale(self):
+        return self.cfg.voxel_extents[0]
+
+    def getCurrPose(self):
+        m = np.eye(4, dtype=np.float32)
+        m[:3, :3] = self.curr_rot
+        m[:3, 3] = self.curr_trans
+        return m
+
+    def getVertices(self):
+        return self.mesh.vertices
+
+    def getFaces(self):
+        return self.mesh.faces
+
+    def getColors(self):
+        return self.mesh.colors

@@ -1,0 +1,128 @@
+"""Build and load the port's CUDA kernels (mrhash_tpu_torch/csrc/*.cu).
+
+The kernels are compiled with nvcc into one shared library with a plain C
+interface and loaded with ctypes.  The library lands in
+mrhash_tpu_torch/_build/, named by a hash of the sources and flags, and is
+built at first use, so a fresh checkout builds it on its first call and a
+changed source never loads a stale binary.  Nothing here runs at import.
+
+Flags: sm_90a (Hopper), -O3, no --use_fast_math, and -fmad=false — the
+kernels truncate projected pixel coordinates to int, and a contracted FMA
+or an approximate division would move voxels that sit on a pixel boundary
+onto the next pixel, away from the plain PyTorch twins.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_lib = None
+
+_vp = ctypes.c_void_p
+_i = ctypes.c_int
+_i64 = ctypes.c_int64
+SIGNATURES = {
+    # depth, rgbp, cols, cam, bpos, prow, n_blocks,
+    # sdf, sumsq, weight, rgbp_pool, flags, stream
+    "mrhash_fused_integrate_rows": [_vp, _vp, _i, _vp, _vp, _vp, _i64,
+                                    _vp, _vp, _vp, _vp, _vp, _vp],
+    # img, rows, cols, row, col, ok, n_blocks, out, stream
+    "mrhash_sample_image": [_vp, _i, _i, _vp, _vp, _vp, _i64, _vp, _vp],
+}
+
+
+def sources():
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc():
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "mrhash_tpu_torch need the CUDA toolkit")
+    return path
+
+
+def library_path():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libmrhash_torch_{h.hexdigest()[:16]}.so")
+
+
+def build():
+    """Compile the kernel library if no build of the current sources
+    exists.  Raises with nvcc's stderr on failure.  Returns the path."""
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cu = [s for s in sources() if s.endswith(".cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, out)   # atomic: concurrent builders never see a partial
+    return out
+
+
+def library():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.mrhash_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.mrhash_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(rc: int, what: str):
+    """Raise if a launch returned a CUDA error code (cudaGetLastError)."""
+    if rc != 0:
+        msg = library().mrhash_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def stream_of(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def expect(t, name, dtype, shape, device):
+    """Validate a kernel operand: device, dtype, shape (None = any extent)
+    and contiguity.  Raises ValueError naming the operand."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dim() != len(shape) or any(
+            s is not None and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")

@@ -1,0 +1,174 @@
+"""Kernel K1: fused TSDF integrate of the compacted block window.
+
+Replaces mrhash_tpu/ops/fused_integrate.py::_kernel, res-0 branch (the
+Pallas kernel behind fused_integrate_pallas).  The CUDA source is
+csrc/fused_integrate.cu; its header comment gives the design.  In short,
+one CTA per window block and one thread per voxel: projection, depth + RGB
+load at the voxel's own pixel, truncation, combineVoxel and the Welford
+update, written in place into the block's pool row, then a block reduction
+of the GC flags.
+
+Bound on the card: bytes — 16 B of pool read, 8 B of frame read and at
+most 16 B written per voxel.  The TPU kernel's patch + one-hot MXU
+sampling and the pack/scatter of pool rows existed to keep the frame and
+the rows in VMEM; on Hopper a direct load of each voxel's pixel (L2
+resident) and an in-place row update move the fewest bytes.
+
+`fused_integrate_rows` takes the plain PyTorch twin
+`fused_integrate_rows_ref` for CPU tensors only; for CUDA tensors it
+launches the kernel or raises.  `launch_count` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from mrhash_tpu_torch.ops import cuda_lib
+
+LANES = 512
+CAM_VEC_LEN = 32
+FAR_F32 = 3e38
+
+launch_count = 0
+
+
+def make_cam_vec(cam, vvs, trunc0, trunc1, max_int, w_sample, w_max):
+    """Pack camera + integration constants into the kernel's f32[32]:
+    0 fx, 1 fy, 2 cx, 3 cy, 4 min_depth, 5 max_depth, 6..14 rot (row-major
+    cam->world), 15..17 trans, 18 vvs, 19 trunc0, 20 trunc1,
+    21 max_integration_distance, 22 w_sample, 23 w_max, 24 rows, 25 cols."""
+    dev = cam.rot.device
+    head = torch.stack([cam.fx, cam.fy, cam.cx, cam.cy, cam.min_depth,
+                        cam.max_depth])
+    tail = torch.tensor([vvs, trunc0, trunc1, max_int, float(w_sample),
+                         float(w_max), float(cam.rows), float(cam.cols)],
+                        dtype=torch.float32, device=dev)
+    pad = torch.zeros(CAM_VEC_LEN - 26, dtype=torch.float32, device=dev)
+    return torch.cat([head, cam.rot.reshape(-1), cam.trans, tail, pad])
+
+
+def fused_integrate_rows_ref(pool, depth_img, rgb_img, cam_vec, bpos, prow):
+    """Plain PyTorch twin of the kernel: the same f32 operations in the
+    same order.  Updates the pool rows `prow` in place and returns the
+    flags f32[A,4] (min |sdf| over weighted lanes, max weight, weight sum,
+    sumsq sum over weighted lanes)."""
+    c = cam_vec
+    fx, fy, cx, cy, min_d, max_d = c[0], c[1], c[2], c[3], c[4], c[5]
+    r00, r01, r02, r10, r11, r12, r20, r21, r22 = (c[6 + k] for k in range(9))
+    tx, ty, tz = c[15], c[16], c[17]
+    vvs, t0, t1, max_int = c[18], c[19], c[20], c[21]
+    w_samp, w_max, rows_f, cols_f = c[22], c[23], c[24], c[25]
+
+    lane = torch.arange(LANES, device=bpos.device)
+    offx = (lane % 8).to(torch.float32)
+    offy = ((lane // 8) % 8).to(torch.float32)
+    offz = (lane // 64).to(torch.float32)
+    bp = bpos.to(torch.float32)
+    pwx = (bp[:, 0:1] * 8.0 + offx) * vvs - tx
+    pwy = (bp[:, 1:2] * 8.0 + offy) * vvs - ty
+    pwz = (bp[:, 2:3] * 8.0 + offz) * vvs - tz
+    pcx = pwx * r00 + pwy * r10 + pwz * r20
+    pcy = pwx * r01 + pwy * r11 + pwz * r21
+    pcz = pwx * r02 + pwy * r12 + pwz * r22
+
+    depth_ok = (pcz > min_d) & (pcz <= max_d)
+    zs = torch.where(pcz == 0.0, torch.ones_like(pcz), pcz)
+    lim = float(1 << 30)   # off-image values: any int that fails the bounds
+    row = torch.clamp(torch.trunc(fy * pcy / zs + cy + 0.5), -lim, lim)
+    col = torch.clamp(torch.trunc(fx * pcx / zs + cx + 0.5), -lim, lim)
+    ok = (depth_ok & (row >= 0) & (col >= 0) & (row < rows_f)
+          & (col < cols_f))
+    W_ = depth_img.shape[1]
+    flat = torch.where(ok, row.to(torch.int64) * W_ + col.to(torch.int64), 0)
+    depth = torch.where(ok, depth_img.reshape(-1)[flat], 0.0)
+    pk = torch.where(ok, rgb_img.reshape(-1)[flat], 0)
+
+    sdf0, ssq0 = pool.sdf[prow], pool.sumsq[prow]
+    w0, rgbp0 = pool.weight[prow], pool.rgbp[prow]
+
+    depth_ok2 = ok & (depth != 0.0) & (depth <= max_int)
+    s = depth - pcz
+    trunc = t0 + t1 * depth
+    inside = s > -trunc
+    s = torch.clamp(s, min=-trunc, max=trunc)
+    update = depth_ok2 & inside
+
+    w0f = w0.to(torch.float32)
+    half = vvs * 0.5
+    curr_mean = torch.where(w0 > 0, sdf0, s)
+    delta = (s - curr_mean) / half
+    first = w0 == 0
+    chans = []
+    for sh in (0, 8, 16):
+        new = ((pk >> sh) & 255).to(torch.float32)
+        old = torch.where(first, new, ((rgbp0 >> sh) & 255).to(torch.float32))
+        chans.append(torch.floor(0.5 * old + 0.5 * new + 0.5))
+    rgbp_m = (chans[0] + chans[1] * 256.0 + chans[2] * 65536.0).to(
+        torch.int32)
+    m_sdf = (sdf0 * w0f + s * w_samp) / (w0f + w_samp)
+    m_w = torch.minimum(w_max, w0f + w_samp).to(torch.int32)
+    delta2 = (s - m_sdf) / half
+    m_ssq = ssq0 + delta * delta2
+
+    out_sdf = torch.where(update, m_sdf, sdf0)
+    out_ssq = torch.where(update, m_ssq, ssq0)
+    out_w = torch.where(update, m_w, w0)
+    pool.sdf[prow] = out_sdf
+    pool.sumsq[prow] = out_ssq
+    pool.weight[prow] = out_w
+    pool.rgbp[prow] = torch.where(update, rgbp_m, rgbp0)
+
+    weighted = out_w > 0
+    return torch.stack([
+        torch.where(weighted, torch.abs(out_sdf), FAR_F32).amin(dim=1),
+        out_w.amax(dim=1).to(torch.float32),
+        out_w.sum(dim=1).to(torch.float32),
+        torch.where(weighted, out_ssq, 0.0).sum(dim=1)], dim=1)
+
+
+def fused_integrate_rows(pool, depth_img, rgb_img, cam_vec, bpos, prow):
+    """K1 wrapper.  pool: VoxelPool of [N,512] rows; depth_img f32[H,W];
+    rgb_img i32[H,W] packed r | g<<8 | b<<16; cam_vec f32[32]
+    (make_cam_vec); bpos i32[A,3]; prow i64[A] distinct rows in [0, N).
+    Updates the rows in place and returns flags f32[A,4]."""
+    dev = depth_img.device
+    H_, W_ = depth_img.shape
+    N = pool.sdf.shape[0]
+    A = bpos.shape[0]
+    e = cuda_lib.expect
+    e(depth_img, "depth_img", torch.float32, (H_, W_), dev)
+    e(rgb_img, "rgb_img", torch.int32, (H_, W_), dev)
+    e(cam_vec, "cam_vec", torch.float32, (CAM_VEC_LEN,), dev)
+    e(bpos, "bpos", torch.int32, (A, 3), dev)
+    e(prow, "prow", torch.int64, (A,), dev)
+    for f, dt in (("sdf", torch.float32), ("sumsq", torch.float32),
+                  ("weight", torch.int32), ("rgbp", torch.int32)):
+        e(getattr(pool, f), f"pool.{f}", dt, (N, LANES), dev)
+    if A and not bool(((prow >= 0) & (prow < N)).all()):
+        raise ValueError(f"prow: a row outside [0, {N})")
+    if dev.type == "cpu":
+        return fused_integrate_rows_ref(pool, depth_img, rgb_img, cam_vec,
+                                        bpos, prow)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_integrate_rows: no kernel for {dev}")
+    return _launch(pool, depth_img, rgb_img, cam_vec, bpos, prow)
+
+
+def _launch(pool, depth_img, rgb_img, cam_vec, bpos, prow):
+    """Launch K1 on CUDA operands that fused_integrate_rows has validated
+    (the range check syncs, so kernel timings call this directly)."""
+    dev = depth_img.device
+    A = bpos.shape[0]
+    flags = torch.empty((A, 4), dtype=torch.float32, device=dev)
+    if A == 0:
+        return flags
+    lib = cuda_lib.library()
+    p = cuda_lib.ptr
+    with torch.cuda.device(dev):
+        rc = lib.mrhash_fused_integrate_rows(
+            p(depth_img), p(rgb_img), depth_img.shape[1], p(cam_vec),
+            p(bpos), p(prow), A, p(pool.sdf), p(pool.sumsq), p(pool.weight),
+            p(pool.rgbp), p(flags), cuda_lib.stream_of(depth_img))
+    cuda_lib.check(rc, "fused_integrate_rows")
+    global launch_count
+    launch_count += 1
+    return flags

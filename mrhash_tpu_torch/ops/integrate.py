@@ -1,0 +1,418 @@
+"""TSDF allocation, integration, starvation and garbage collection for the
+single-resolution RGB-D path.
+
+Port of the res-0 parts of mrhash_tpu/ops/integrate.py.  Torch is eager,
+so the compacted block window is exactly as long as the number of
+in-frustum blocks: window tensors carry no validity mask and no padding,
+and pool rows are updated in place.  A window is (slots i64[A],
+bpos i32[A,3], bptr i32[A], bres i32[A]); every entry is a res-0 block whose
+pool row is bptr // 512.
+"""
+from __future__ import annotations
+
+import torch
+
+from mrhash_tpu import params as P
+from mrhash_tpu_torch.core.state import (LANES, MapConfig, VoxelPool,
+                                         pack_rgb, unpack_rgb)
+from mrhash_tpu_torch.ops import camera as C
+from mrhash_tpu_torch.ops import coords as X
+from mrhash_tpu_torch.ops import fused_integrate as FI
+from mrhash_tpu_torch.ops import hashtable as H
+from mrhash_tpu_torch.ops import sample_image as SI
+
+INF = float("inf")
+_SALT0 = 2654435761  # Knuth multiplicative constant
+
+
+def _norm3(v):
+    """Euclidean norm over the last axis, summed x, y, z in order."""
+    x, y, z = v[..., 0:1], v[..., 1:2], v[..., 2:3]
+    return torch.sqrt(x * x + y * y + z * z)
+
+
+# ---------------------------------------------------------------------------
+# frustum culling
+# ---------------------------------------------------------------------------
+
+def blocks_in_frustum_approx(cam: C.Camera, block_pos, vvs):
+    """isSDFBlockInCameraFrustumApprox (voxel_data_structures.cu:66-78),
+    as the reference's default: the block centre against the +-50%-padded
+    frustum with the depth range widened by the block diagonal."""
+    base = X.sdf_block_to_virtual_voxel_pos(block_pos)
+    center = X.virtual_voxel_pos_to_world(vvs, base) + 3.5 * vvs
+    diag = P.SDF_BLOCK_SIZE * vvs * 1.8
+    pc = C.world_to_cam(cam, center)
+    row, col, _ = C.project_point_approx(cam, pc)
+    depth = C.get_depth(cam, pc)
+    depth_ok = ((depth > cam.min_depth - diag)
+                & (depth <= cam.max_depth + diag))
+    rt = int(cam.rows * 0.5)
+    ct = int(cam.cols * 0.5)
+    inside = ((row >= -rt) & (col >= -ct)
+              & (row < cam.rows + rt) & (col < cam.cols + ct))
+    return depth_ok & inside
+
+
+# ---------------------------------------------------------------------------
+# DDA candidate generation
+# ---------------------------------------------------------------------------
+
+def _dda_visit(cfg: MapConfig, pw_min, pw_max, ray_valid, num_steps: int):
+    """Block-level DDA of allocBlocksKernel (voxel_data_structures.cu:
+    790-857): walk the block grid from pw_min to pw_max for num_steps steps.
+    Returns (cells i32[K,R,3], visit_mask bool[K,R])."""
+    vvs = cfg.virtual_voxel_size
+    ext = cfg.voxel_extents
+    seg = pw_max - pw_min
+    seg_len = _norm3(seg)
+    direction = seg / torch.where(seg_len == 0, torch.ones_like(seg_len),
+                                  seg_len)
+    step = torch.sign(direction)
+    step_i = torch.clamp(step, 0.0, 1.0).to(torch.int32)
+    id_cur = X.world_point_to_sdf_block(vvs, ext, pw_min)
+    id_end = X.world_point_to_sdf_block(vvs, ext, pw_max)
+    boundary = (X.sdf_block_to_world_point(vvs, id_cur + step_i)
+                - 0.5 * vvs)
+    cell_metric = P.SDF_BLOCK_SIZE * vvs
+    safe_dir = torch.where(direction == 0, torch.ones_like(direction),
+                           direction)
+    t_max = (boundary - pw_min) / safe_dir
+    t_delta = (step * cell_metric) / safe_dir
+    degenerate = ((torch.abs(direction) < P.FLOAT_EPSILON)
+                  | (torch.abs(boundary - direction) < P.FLOAT_EPSILON))
+    t_max = torch.where(degenerate, INF, t_max)
+    t_delta = torch.where(degenerate, INF, t_delta)
+    id_bound = (id_end.to(torch.float32) + step).to(torch.int32)
+    step_int = step.to(torch.int32)
+
+    alive = ray_valid
+    blocks, masks = [], []
+    for _ in range(num_steps):
+        blocks.append(id_cur)
+        masks.append(alive)
+        tx, ty, tz = t_max[..., 0], t_max[..., 1], t_max[..., 2]
+        ax_x = (tx < ty) & (tx < tz)
+        ax_z = ~ax_x & (tz < ty)
+        ax_y = ~ax_x & ~ax_z
+        axis = torch.stack([ax_x, ax_y, ax_z], dim=-1)
+        id_cur = torch.where(axis, id_cur + step_int, id_cur)
+        hit_bound = (axis & (id_cur == id_bound)).any(dim=-1)
+        t_max = torch.where(axis, t_max + t_delta, t_max)
+        alive = alive & ~hit_bound
+    return torch.stack(blocks), torch.stack(masks)
+
+
+def _alloc_candidates_tiles(cfg: MapConfig, cam: C.Camera, pc_depth,
+                            num_steps: int, row0, frame: int):
+    """Tile-granular allocation (mrhash_tpu: _alloc_candidates_tiles): per
+    s x s pixel tile one representative ray, phase-rotated over the tile's
+    pixels, walks the near band [dmin-t, dmin+t] on even frames and the far
+    band [max(dmax-t, dmin+t), dmax+t] on odd frames."""
+    H_, W_ = pc_depth.shape
+    s = int(cfg.alloc_tile)
+    Hp, Wp = -(-H_ // s) * s, -(-W_ // s) * s
+    d = pc_depth
+    if (Hp, Wp) != (H_, W_):
+        d = torch.zeros((Hp, Wp), dtype=pc_depth.dtype,
+                        device=pc_depth.device)
+        d[:H_, :W_] = pc_depth
+    tiles = d.reshape(Hp // s, s, Wp // s, s)
+    tvalid = tiles > 0.0
+    dmin = torch.where(tvalid, tiles, INF).amin(dim=(1, 3)).reshape(-1)
+    dmax = torch.where(tvalid, tiles, -INF).amax(dim=(1, 3)).reshape(-1)
+    any_valid = tvalid.sum(dim=(1, 3)).reshape(-1) > 0
+
+    Wt = Wp // s
+    n_tiles = (Hp // s) * Wt
+    use_far = frame % 2 == 1
+    phase = (frame // 2) % (s * s)
+    py, px = phase // s, phase % s
+    ar = torch.arange(n_tiles, dtype=torch.int32, device=d.device)
+    rows = (py + s * (ar // Wt) + row0).to(torch.float32)
+    cols = (px + s * (ar % Wt)).to(torch.float32)
+
+    t_lo = X.get_truncation(dmin, cfg.sdf_truncation,
+                            cfg.sdf_truncation_scale)
+    t_hi = X.get_truncation(dmax, cfg.sdf_truncation,
+                            cfg.sdf_truncation_scale)
+    mdist = cfg.max_integration_distance
+    a_max = torch.clamp(dmin + t_lo, max=mdist)
+    if use_far:
+        lo = torch.clamp(torch.maximum(dmax - t_hi, a_max), max=mdist)
+        hi = torch.clamp(dmax + t_hi, max=mdist)
+    else:
+        lo = torch.clamp(dmin - t_lo, max=mdist)
+        hi = a_max
+    ok = any_valid & (lo < hi)
+    pw_min = C.cam_to_world(cam, C.inverse_projection(cam, rows, cols, lo))
+    pw_max = C.cam_to_world(cam, C.inverse_projection(cam, rows, cols, hi))
+    keys, mask = _dda_visit(cfg, pw_min, pw_max, ok, num_steps)
+    return keys.reshape(-1, 3), mask.reshape(-1)
+
+
+def alloc_candidates_depth(cfg: MapConfig, cam: C.Camera, pc_depth,
+                           num_steps: int, row0=0, frame=None):
+    """allocBlocksKernel (voxel_data_structures.cu:757-857): per-pixel ray
+    through the truncation band [d-t, d+t].  cfg.alloc_tile > 1 takes the
+    tile path; otherwise cfg.alloc_pixel_stride = s > 1 (with a frame
+    counter) walks every s-th pixel, phase-rotated per frame.  Returns flat
+    candidate keys i32[M,3] + valid mask bool[M]."""
+    if int(cfg.alloc_tile) > 1:
+        return _alloc_candidates_tiles(cfg, cam, pc_depth, num_steps, row0,
+                                       0 if frame is None else int(frame))
+    H_, W_ = pc_depth.shape
+    dev = pc_depth.device
+    s = int(cfg.alloc_pixel_stride)
+    if s > 1 and frame is not None:
+        phase = int(frame) % (s * s)
+        py, px = phase // s, phase % s
+        sub = pc_depth[py:py + H_ - s + 1:s, px:px + W_ - s + 1:s]
+        Hs, Ws = sub.shape
+        depth = sub.reshape(-1)
+        ar = torch.arange(Hs * Ws, dtype=torch.int32, device=dev)
+        rows = (py + s * (ar // Ws) + row0).to(torch.float32)
+        cols = (px + s * (ar % Ws)).to(torch.float32)
+    else:
+        depth = pc_depth.reshape(-1)
+        ar = torch.arange(H_ * W_, dtype=torch.int32, device=dev)
+        rows = (ar // W_ + row0).to(torch.float32)
+        cols = (ar % W_).to(torch.float32)
+
+    t = X.get_truncation(depth, cfg.sdf_truncation, cfg.sdf_truncation_scale)
+    d_min = torch.clamp(depth - t, max=cfg.max_integration_distance)
+    d_max = torch.clamp(depth + t, max=cfg.max_integration_distance)
+    ray_valid = (depth != 0.0) & (d_min < d_max)
+    pw_min = C.cam_to_world(cam, C.inverse_projection(cam, rows, cols, d_min))
+    pw_max = C.cam_to_world(cam, C.inverse_projection(cam, rows, cols, d_max))
+    blocks, mask = _dda_visit(cfg, pw_min, pw_max, ray_valid, num_steps)
+    return blocks.reshape(-1, 3), mask.reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# candidate dedup + allocation
+# ---------------------------------------------------------------------------
+
+def dedup_candidates(keys, valid, frame_salt: int, scratch_size: int,
+                     u_max: int):
+    """One representative per distinct block key via a salted scratch
+    scatter.  Distinct keys colliding in a cell lose one candidate this
+    frame; the per-frame salt rotates the losers (the reference's staggered
+    lock-miss semantics, voxel_data_structures.cu:876).  Each cell keeps
+    its highest candidate index (scatter "amax"; the reference's duplicate
+    .set lets any writer win).  Returns the winners' keys i32[<=u_max,3]
+    in scratch-cell order."""
+    x, y, z = (H.u32(keys[..., i]) for i in range(3))
+    salt = (int(frame_salt) * _SALT0) & H.MASK32
+    h = H._avalanche((H.mul32(x, P.P1) + salt) & H.MASK32)
+    h = H._avalanche(h ^ H.mul32(y, P.P2))
+    h = H._avalanche(h ^ H.mul32(z, P.P0))
+    cell = h % int(scratch_size)
+
+    vidx = torch.nonzero(valid).flatten()
+    scratch = torch.full((scratch_size,), -1, dtype=torch.int64,
+                         device=keys.device)
+    scratch.scatter_reduce_(0, cell[vidx], vidx, "amax")
+    sel = H.compact_indices(scratch >= 0, u_max)
+    return keys[scratch[sel]]
+
+
+def alloc_blocks(cfg: MapConfig, table: H.HashTable, keys, valid,
+                 frame: int):
+    """allocBlocks (voxel_data_structures.cu:873-922): alloc_rounds salted
+    dedup + insert passes, updating `table` in place."""
+    U = cfg.max_alloc_per_frame
+    for i in range(cfg.alloc_rounds):
+        ukeys = dedup_candidates(keys, valid, frame * cfg.alloc_rounds + i,
+                                 U * cfg.dedup_scratch_factor, U)
+        H.insert(table, ukeys, torch.zeros(ukeys.shape[0], dtype=torch.int32,
+                                           device=ukeys.device))
+
+
+# ---------------------------------------------------------------------------
+# compacted block window
+# ---------------------------------------------------------------------------
+
+def compact_active(cfg: MapConfig, table: H.HashTable, cam: C.Camera = None):
+    """flatAndReduceHashTable (voxel_data_structures.cu:405-499): occupied
+    slots (inside the padded frustum when `cam` is given), in slot order,
+    capped at cfg.max_active_blocks.  Returns (slots i64[A], bpos, bptr,
+    bres)."""
+    inside = (None if cam is None else
+              blocks_in_frustum_approx(cam, table.pos, cfg.virtual_voxel_size))
+    slots = H.compact(table, inside, int(cfg.max_active_blocks))
+    return slots, table.pos[slots], table.ptr[slots], table.res[slots]
+
+
+def _block_rows(bptr):
+    """Pool row of each res-0 block (ptr = row * 512)."""
+    return bptr.to(torch.int64) // LANES
+
+
+def _block_voxel_grid(bpos):
+    """Virtual-voxel coords i32[A,512,3] of each row lane of each res-0
+    block (integrateDepthMapKernel's delinearized lattice,
+    voxel_data_structures.cu:1114-1118)."""
+    lanes = torch.arange(LANES, dtype=torch.int32, device=bpos.device)
+    offs = X.delinearize_voxel_pos(lanes)                      # [512,3]
+    return X.sdf_block_to_virtual_voxel_pos(bpos)[:, None, :] + offs
+
+
+def _gather_block_rows(pool: VoxelPool, row):
+    return {f: getattr(pool, f)[row] for f in VoxelPool.FIELDS}
+
+
+def _scatter_block_rows(pool: VoxelPool, row, update_mask, new, old):
+    """Write the updated lanes of whole rows back (res-0 rows are unique
+    within a window, so a row index_put is race-free)."""
+    for name, vals in new.items():
+        getattr(pool, name)[row] = torch.where(update_mask, vals, old[name])
+
+
+# ---------------------------------------------------------------------------
+# integration
+# ---------------------------------------------------------------------------
+
+def integrate_depth(cfg: MapConfig, pool: VoxelPool, cam: C.Camera,
+                    pc_depth, rgb_img, bpos, bptr):
+    """integrateDepthMapKernel (voxel_data_structures.cu:1094-1181), gather
+    form: project every voxel of every window block, sample depth and
+    colour at its pixel with element gathers, fuse SDF + colour and
+    accumulate the Welford sum_squared; pool rows updated in place.  The
+    plain reference for the fused kernel (ops/fused_integrate.py)."""
+    vvs = cfg.virtual_voxel_size
+    prow = _block_rows(bptr)
+    pf = X.virtual_voxel_pos_to_world(vvs, _block_voxel_grid(bpos))
+    pcam = C.world_to_cam(cam, pf)
+    row, col, ok = C.project_point(cam, pcam)
+
+    W_ = pc_depth.shape[1]
+    flat = torch.where(ok, row.to(torch.int64) * W_ + col, 0)
+    depth = pc_depth.reshape(-1)[flat]
+    rgb_new = unpack_rgb(pack_rgb(rgb_img).reshape(-1)[flat])
+
+    depth_ok = ok & (depth != 0.0) & (depth <= cfg.max_integration_distance)
+    sdf = depth - C.get_depth(cam, pcam)
+    trunc = X.get_truncation(depth, cfg.sdf_truncation,
+                             cfg.sdf_truncation_scale)
+    inside = sdf > -trunc
+    sdf = torch.clamp(sdf, min=-trunc, max=trunc)
+    update = depth_ok & inside
+
+    old = _gather_block_rows(pool, prow)
+    sdf0, w0, ssq0 = old["sdf"], old["weight"], old["sumsq"]
+    rgb0 = unpack_rgb(old["rgbp"])
+
+    # Welford accumulation (voxel_data_structures.cu:1162-1180); deltas are
+    # normalized by half a voxel
+    half_voxel = vvs / 2.0
+    curr_mean = torch.where(w0 > 0, sdf0, sdf)
+    delta = (sdf - curr_mean) / half_voxel
+    rgb0_eff = torch.where((w0 == 0)[..., None], rgb_new, rgb0)
+    w_new = torch.full_like(w0, cfg.integration_weight_sample)
+    m_sdf, m_w, m_rgb = X.combine_voxel(
+        sdf0, w0, rgb0_eff, sdf, w_new, rgb_new, cfg.integration_weight_max)
+    delta2 = (sdf - m_sdf) / half_voxel
+    m_ssq = ssq0 + delta * delta2
+    _scatter_block_rows(pool, prow, update,
+                        dict(sdf=m_sdf, weight=m_w, sumsq=m_ssq,
+                             rgbp=pack_rgb(m_rgb)), old)
+
+
+def fused_integrate_depth(cfg: MapConfig, pool: VoxelPool, cam: C.Camera,
+                          pc_depth, rgb_img, bpos, bptr):
+    """One-kernel depth integration over the window (single resolution,
+    non-resident): kernel K1 (ops/fused_integrate.py) projects, samples the
+    frame at each voxel's own pixel, fuses and writes the pool rows in
+    place.  Every in-image voxel is served, so there is no element
+    fallback and unserved_blocks is 0 (PORT_NOTES.md P2).
+
+    Returns aux dict(gc_min_s f32[A], gc_max_w f32[A], unserved_blocks=0):
+    the GC flags of the rows after the update."""
+    cam_vec = FI.make_cam_vec(
+        cam, cfg.virtual_voxel_size, cfg.sdf_truncation,
+        cfg.sdf_truncation_scale, cfg.max_integration_distance,
+        cfg.integration_weight_sample, cfg.integration_weight_max)
+    flags = FI.fused_integrate_rows(
+        pool, pc_depth.contiguous(), pack_rgb(rgb_img).contiguous(), cam_vec,
+        bpos.contiguous(), _block_rows(bptr).contiguous())
+    return dict(gc_min_s=flags[:, 0], gc_max_w=flags[:, 1],
+                unserved_blocks=0)
+
+
+# ---------------------------------------------------------------------------
+# starvation + garbage collection
+# ---------------------------------------------------------------------------
+
+FAR = 1e30   # z-buffer sentinel
+
+
+def starve_mask(cfg: MapConfig, cam: C.Camera, bpos, bptr):
+    """Geometry half of starveVoxelsKernel (voxel_data_structures.cu:
+    1596-1671): the [A,512] mask of the front-most window voxel per pixel.
+    One-shot over the whole window (PORT_NOTES.md P3).  The z-buffer is a
+    scatter-min; its readback at each voxel's own pixel goes through kernel
+    K2 (ops/sample_image.py), as the reference's fused path reads it back
+    through its image sampler.  Voxels tied at the exact front depth all
+    starve (deviation D11 of the reference)."""
+    vvs = cfg.virtual_voxel_size
+    pf = X.virtual_voxel_pos_to_world(vvs, _block_voxel_grid(bpos))
+    pcam = C.world_to_cam(cam, pf)
+    row, col, ok = C.project_point(cam, pcam)
+    depth = C.get_depth(cam, pcam)
+    ok = ok & (depth >= cam.min_depth)
+
+    HW = cam.rows * cam.cols
+    pix = torch.where(ok, row.to(torch.int64) * cam.cols + col, HW)
+    d = torch.where(ok, depth, FAR)
+    zbuf = torch.full((HW + 1,), FAR, dtype=torch.float32, device=d.device)
+    zbuf.scatter_reduce_(0, pix.reshape(-1), d.reshape(-1), "amin")
+    zimg = torch.zeros((2, cam.rows, cam.cols), dtype=torch.float32,
+                       device=d.device)
+    zimg[0] = zbuf[:HW].reshape(cam.rows, cam.cols)
+    zsamp = SI.sample_image(zimg, row.contiguous(), col.contiguous(),
+                            ok.contiguous())[:, 0, :]
+    return ok & (depth == zsamp)
+
+
+def apply_starve(pool: VoxelPool, bptr, starved):
+    """Decrement the weights of the starved lanes, in place."""
+    prow = _block_rows(bptr)
+    w0 = pool.weight[prow]
+    pool.weight[prow] = torch.where(starved, torch.clamp(w0 - 1, min=0), w0)
+
+
+def starve_voxels(cfg: MapConfig, pool: VoxelPool, cam: C.Camera, bpos,
+                  bptr):
+    """starveVoxelsKernel: the front-most voxel per pixel loses one unit of
+    weight."""
+    apply_starve(pool, bptr, starve_mask(cfg, cam, bpos, bptr))
+
+
+def _clear_blocks(pool: VoxelPool, bptr):
+    """deleteVoxel over whole res-0 blocks: zero their pool rows."""
+    rows = _block_rows(bptr)
+    for f in VoxelPool.FIELDS:
+        getattr(pool, f)[rows] = 0
+
+
+def garbage_collect_sweep(cfg: MapConfig, table: H.HashTable,
+                          pool: VoxelPool, cam: C.Camera, slots,
+                          kernel_flags):
+    """garbageCollectIdentify + Free (voxel_data_structures.cu:1673-1854):
+    free window blocks whose min |sdf| over weighted voxels reaches the
+    max-depth truncation or whose max weight is zero (at most
+    cfg.max_gc_free_per_frame per frame, window order; the rest stagger).
+
+    kernel_flags = (min_abs_sdf[A], max_w[A]) of the window rows, from
+    kernel K1.  On starve frames those flags predate the starvation, so a
+    block starved to weight 0 is freed one frame later (the reference's
+    deviation D12)."""
+    trunc_max = X.get_truncation(cam.max_depth, cfg.sdf_truncation,
+                                 cfg.sdf_truncation_scale)
+    min_s, max_w = kernel_flags
+    decision = (min_s >= trunc_max) | (max_w == 0)
+    didx = H.compact_indices(decision, int(cfg.max_gc_free_per_frame))
+    if didx.numel():
+        ptrs, _ = H.free_slots(table, slots[didx])
+        _clear_blocks(pool, ptrs)
