@@ -1,0 +1,214 @@
+#!/usr/bin/env python3
+"""Where the time of a LiDAR scan goes, on one NVIDIA card; and an A/B of
+the RGB-D frame time against another checkout of the port.
+
+    python3 chip_profile.py
+    python3 chip_profile.py --rgbd-ab OTHER_ROOT
+
+The first form drives chip_smoke.py's LiDAR cell
+(configurations/newer_college.cfg, 64x1024 scans of the synthetic ground +
+wall scene, 0.5 m per scan) through GeoWrapper(device="cuda") and
+reports:
+  1. the unprofiled scan time, median over scans 10-39, and the host cost
+     of a stage range (utils/profiler.py::stage) while no profiler runs;
+  2. a torch.profiler trace of scans 10-19 through GeoWrapper.compute:
+     device time per scan and its share of the unprofiled scan, kernel
+     launches and host syncs per scan, kernel K3's device time per launch,
+     and the host and device time of each stage, read from the points.*
+     ranges of the frame step itself (core/pipeline.py::integrate_points);
+  3. K3's host cost per launch (the wrapper's launcher, no sync) against its
+     device time.
+The second form times chip_smoke.py's RGB-D cell (120 frames of the
+box-room orbit at 1200x680, no mesh), each run in a fresh process, with
+the mrhash_tpu_torch of OTHER_ROOT (A) and of this checkout (B) in turns
+A B B A A B B A, and prints each run's median frame time over frames
+40-119.  Prints the card's name and power limit beside the numbers.  Needs
+a card.
+"""
+import json
+import os
+import subprocess
+import statistics
+import sys
+import time
+
+import chip_smoke as S
+
+
+def stage_times(prof, n):
+    """{range: (host ms, device ms)} per scan of the points.* ranges that
+    core/pipeline.py::integrate_points and ops/integrate.py open, from the
+    host-side events of a torch.profiler run over n scans.  A range's device
+    time is that of the kernels launched inside it, nested ranges included."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.events():
+        if e.name.startswith("points.") and e.device_type == DeviceType.CPU:
+            host, dev = out.get(e.name, (0.0, 0.0))
+            out[e.name] = (host + e.cpu_time_total / 1e3 / n,
+                           dev + _dev_us(e, "device_time_total") / 1e3 / n)
+    return out
+
+
+def _dev_us(e, name):
+    """An event's device time in us under either name torch has used."""
+    if hasattr(e, name):
+        return getattr(e, name)
+    return getattr(e, name.replace("device", "cuda"), 0.0)
+
+
+def rgbd_run():
+    """One RGB-D run with whichever mrhash_tpu_torch is first on sys.path;
+    prints a JSON line with the median and mean frame ms of frames
+    40-119."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    rgb = rng.integers(0, 255, (S.ROWS, S.COLS, 3)).astype(np.uint8)
+    depths = [S.room_depth(*S.orbit_pose(i)[:2], rng) for i in range(S.ORBIT)]
+    gw = S.make_wrapper("cuda")
+    ms = []
+    for i in range(S.N_FRAMES):
+        t0 = time.perf_counter()
+        S.feed(gw, i, depths, rgb)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    steady = ms[S.ORBIT:]
+    import mrhash_tpu_torch
+    print(json.dumps(dict(package=os.path.dirname(mrhash_tpu_torch.__file__),
+                          median_ms=statistics.median(steady),
+                          mean_ms=statistics.fmean(steady))), flush=True)
+
+
+def rgbd_ab(other_root):
+    """Runs rgbd_run in fresh processes, A = other_root, B = this checkout,
+    in turns A B B A A B B A."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    roots = {"A": os.path.abspath(other_root), "B": here}
+    got = {"A": [], "B": []}
+    for name in "ABBAABBA":
+        # chip_smoke / chip_profile from here, mrhash_tpu_torch from root
+        code = (f"import sys; sys.path.insert(0, {here!r}); "
+                "import chip_profile; "
+                f"sys.path.insert(0, {roots[name]!r}); "
+                "chip_profile.rgbd_run()")
+        out = subprocess.run([sys.executable, "-c", code], cwd=here,
+                             capture_output=True, text=True)
+        if out.returncode != 0:
+            raise RuntimeError(f"rgbd run {name} failed:\n{out.stderr}")
+        rec = json.loads(out.stdout.strip().splitlines()[-1])
+        assert rec["package"].startswith(roots[name]), rec
+        got[name].append(rec["median_ms"])
+        print(f"rgbd {name} ({roots[name]}): median {rec['median_ms']:.3f} "
+              f"ms, mean {rec['mean_ms']:.3f} ms", flush=True)
+    for name in "AB":
+        print(f"rgbd {name}: per-run medians {sorted(got[name])}, median of "
+              f"runs {statistics.median(got[name]):.3f} ms "
+              f"[{S.nvidia_smi_line()}]")
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_profile: torch.cuda.is_available() is False")
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mrhash_tpu_torch.ops import camera as C
+    from mrhash_tpu_torch.ops import fused_integrate_points as FIP
+    from mrhash_tpu_torch.ops import integrate as I
+    from mrhash_tpu_torch.utils.profiler import stage
+
+    if len(sys.argv) == 3 and sys.argv[1] == "--rgbd-ab":
+        return rgbd_ab(sys.argv[2])
+    smi = S.nvidia_smi_line()
+    print(f"card: {smi}", flush=True)
+    rng = np.random.default_rng(0)
+    clouds = [S.lidar_cloud(S.lidar_pose(i), rng) for i in range(S.L_FRAMES)]
+
+    # 1. unprofiled scan time, as chip_smoke.py's phase 5 takes it
+    gw = S.make_lidar_wrapper("cuda", clouds[0])
+    scan_ms = []
+    for i in range(S.L_FRAMES):
+        t0 = time.perf_counter()
+        S.feed_lidar(gw, i, clouds)
+        torch.cuda.synchronize()
+        scan_ms.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(scan_ms[S.L_STEADY:])
+    print(f"scan, median over scans {S.L_STEADY}-{S.L_FRAMES - 1}: "
+          f"{wall:.3f} ms [{smi}]")
+
+    # host cost of a stage range while no profiler runs, and of an idle
+    # record_function, which stage() skips
+    for name, fn in (("stage()", stage), ("record_function", record_function)):
+        reps = 10000
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            with fn("points.idle"):
+                pass
+        print(f"{name}, no profiler: "
+              f"{(time.perf_counter() - t0) / reps * 1e6:.2f} us per range")
+
+    # 2. profiler over 10 steady scans through GeoWrapper.compute
+    gw = S.make_lidar_wrapper("cuda", clouds[0])
+    for i in range(S.L_STEADY):
+        S.feed_lidar(gw, i, clouds)
+    torch.cuda.synchronize()
+    n = 10
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(S.L_STEADY, S.L_STEADY + n):
+            S.feed_lidar(gw, i, clouds)
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+
+    def dev_us(e):
+        return _dev_us(e, "self_device_time_total")
+
+    # device-side events only: kernels, copies and sets, not the ranges'
+    # device spans (a host op's own device time repeats its kernels')
+    on_device = [e for e in ka if e.device_type != DeviceType.CPU
+                 and not e.key.startswith("points.")]
+    device_ms = sum(dev_us(e) for e in on_device) / 1e3 / n
+    count = {e.key: e.count for e in ka}
+    launches = sum(count.get(k, 0) for k in ("cudaLaunchKernel",
+                                             "cuLaunchKernel",
+                                             "cudaLaunchKernelExC"))
+    syncs = sum(c for k, c in count.items() if "Synchronize" in k)
+    k3 = [e for e in ka if "fused_integrate_points_kernel" in e.key]
+    k3_us = (dev_us(k3[0]) / k3[0].count) if k3 else float("nan")
+    print(f"profiler, {n} scans [{smi}]: device {device_ms:.3f} ms/scan, "
+          f"busy {device_ms / wall:.4f} of the unprofiled scan, "
+          f"{launches / n:.1f} kernel launches and {syncs / n:.1f} host "
+          f"syncs per scan, K3 {k3_us:.2f} us device per launch")
+    print("stages (torch.profiler ranges; host ms/scan under the profiler, "
+          "device ms/scan):")
+    for name, (host, dev) in stage_times(prof, n).items():
+        print(f"  {name}: host {host:.3f}, device {dev:.3f}")
+    top = sorted(on_device, key=dev_us, reverse=True)[:8]
+    for e in top:
+        print(f"  {dev_us(e) / n / 1e3:.4f} ms/scan  x{e.count // n:<4d} "
+              f"{e.key[:90]}")
+
+    # 3. K3's host cost per launch, no sync in between
+    cfg, st = gw.cfg, gw.state
+    cam = C.with_pose(gw.camera, gw.curr_rot, gw.curr_trans)
+    points = torch.from_numpy(clouds[S.L_STEADY + n - 1]).to("cuda")
+    _, bpos, bptr, _ = I.compact_active(cfg, st.table)
+    img, pix, r_vox, prow, consts = I.points_window(cfg, cam, points, bpos,
+                                                    bptr)
+    FIP._launch(st.pool, img, pix, r_vox, prow, consts)
+    torch.cuda.synchronize()
+    reps = 200
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        FIP._launch(st.pool, img, pix, r_vox, prow, consts)
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    print(f"K3 host cost per launch {host_us:.2f} us over {bpos.shape[0]} "
+          f"blocks [{smi}]")
+
+
+if __name__ == "__main__":
+    main()

@@ -6,24 +6,41 @@ card.
 
 Phases (any failure raises: non-zero exit, no result line):
   1. probe   — CUDA present; device, CUDA runtime, nvidia-smi, nvcc;
-  2. build   — compile the kernels K1 and K2 from mrhash_tpu_torch/csrc;
-  3. compare — each kernel against its plain PyTorch twin on the inputs the
-               main path gives it after 40 frames at 1200x680, then timed in
-               turns (twin, kernel, kernel, twin) with CUDA events; and the
-               whole slice on the card against the slice on the CPU on a
-               small scene;
-  4. run     — GeoWrapper(device="cuda") at replica.cfg's settings, 120
+  2. build   — compile the kernels K1, K2 and K3 from mrhash_tpu_torch/csrc
+               (one nvcc per source, started together);
+  3. compare — each kernel against its plain PyTorch twin on the inputs its
+               path gives it (K1, K2: the RGB-D path after 40 frames at
+               1200x680; K3: the LiDAR path after 20 scans at 64x1024), then
+               timed in turns (twin, kernel, library, library, kernel,
+               twin) by CUDA-graph replay and CUDA events; and each
+               whole slice on the card against the same slice on the CPU
+               on a small scene;
+  4. RGB-D   — GeoWrapper(device="cuda") at replica.cfg's settings, 120
                frames of bench.py's box-room orbit (starvation fires on
                frame 100), with the kernels' launch counts taken over that
                run only; then streamAllOut + extractMesh to a temporary PLY,
-               whose vertices must lie on the room's walls.
-The last lines are the kernels' JSON record, the card's name and power
-limit, and {"ok": true, "device": {...}}.
+               whose vertices must lie on the room's walls;
+  5. LiDAR   — GeoWrapper(device="cuda") at newer_college.cfg's settings, 40
+               scans of a 64x1024 sensor driving 0.5 m per scan past a
+               ground plane and a 25 m cylinder wall, with K3's launch
+               count taken over that run only; then streamAllOut +
+               extractMesh, whose vertices must lie on the plane or the
+               wall.
+After the runs no jax and no mrhash_tpu module may be loaded.  The last
+lines are the kernels' JSON record, the card's name and power limit, and
+{"ok": true, "device": {...}}.
+
+Each kernel's bound_ms is the larger of its bytes over 3.35 TB/s and its
+f32 operations over 67 TFLOP/s (an H100 SXM's published peaks), counted
+from this run's inputs: every input read once, every output written once,
+and the pool lanes that only an update needs read and written only where
+this run updated them.
 """
 import json
 import os
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -35,6 +52,14 @@ N_FRAMES = 120
 HALF = 3.0                      # box room half side, metres
 TURNS, REPEAT = 20, 10          # per version: 20 turns of 10 calls
 TOL = dict(sdf=2e-5, sumsq=5e-4)
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
+F32_FLOPS = 67e12               # H100 SXM, float32 outside the tensor cores
+
+# LiDAR: configurations/newer_college.cfg, Ouster OS1-64 (64 x 1024)
+L_ROWS, L_COLS = 64, 1024
+L_FRAMES, L_COMPARE_AT, L_STEADY = 40, 20, 10
+L_WALL, L_GROUND = 25.0, -1.5   # cylinder radius, ground height (metres)
+L_TOL = 0.3                     # mesh: vertices within 0.3 m of a surface
 
 
 def log(*a):
@@ -112,30 +137,64 @@ def feed(gw, i, depths, rgb):
 # phase 3: kernels against their twins
 # ---------------------------------------------------------------------------
 
-def time_in_turns(kernel, twin):
-    """Median ms per call of each version, timed with CUDA events in turns
-    (twin, kernel, kernel, twin) after one warm-up call of each.  A turn is
-    REPEAT back-to-back calls between two events, so a kernel that runs
-    shorter than its launch's host overhead is not timed as that overhead.
-    `kernel` is the wrapper's launcher, past the wrapper's checks: the
-    index-range check syncs with the device and would time the host."""
+def graphed(fn):
+    """A callable that replays REPEAT calls of `fn` captured in one CUDA
+    graph: back-to-back launches with no host launch cost between them."""
     import torch
-    kernel()
-    twin()
-    ms = {"kernel": [], "twin": []}
-    order = ["twin", "kernel", "kernel", "twin"]
-    fns = {"kernel": kernel, "twin": twin}
-    for k in range(TURNS * 2):
-        name = order[k % 4]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                    # warm up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(REPEAT):
+            fn()
+    return graph.replay
+
+
+def time_in_turns(kernel, twin, library=None):
+    """Median ms per call of each version, timed with CUDA events in turns
+    (twin, kernel, library, library, kernel, twin) after one warm-up call
+    of each.  A turn replays REPEAT calls captured in one CUDA graph, so
+    every version is timed on the device with no host launch cost between
+    its launches.  `kernel` is the wrapper's launcher, past the wrapper's
+    checks: the index-range check syncs with the device.  Returns
+    {"kernel": ms, "twin": ms, "library": ms or None}."""
+    import torch
+    turns = {"twin": graphed(twin), "kernel": graphed(kernel)}
+    if library is not None:
+        turns["library"] = graphed(library)
+    names = list(turns)
+    order = names + names[::-1]
+    ms = {n: [] for n in names}
+    for k in range(TURNS * len(names)):
+        name = order[k % len(order)]
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(REPEAT):
-            fns[name]()
+        turns[name]()
         b.record()
         torch.cuda.synchronize()
         ms[name].append(a.elapsed_time(b) / REPEAT)
-    return statistics.median(ms["kernel"]), statistics.median(ms["twin"])
+    out = {n: statistics.median(v) for n, v in ms.items()}
+    out.setdefault("library", None)
+    return out
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time for these bytes and f32
+    operations at the H100's published peaks."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_record(t, err, nbytes, flops):
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(max_abs_err=err, ms=t["kernel"], plain_ms=t["twin"],
+                bound_ms=b_ms, bound_by=b_by, library_ms=t["library"],
+                bytes=nbytes)
 
 
 def compare_kernels(depths, rgb):
@@ -195,12 +254,18 @@ def compare_kernels(depths, rgb):
     assert torch.equal(fk[:, :3], ft[:, :3]), "K1 GC flags differ"
     torch.testing.assert_close(fk[:, 3], ft[:, 3], rtol=1e-4, atol=1e-6)
     assert updated > 100000, "K1 integrated almost nothing"
-    k1_ms, k1_plain = time_in_turns(
+    t = time_in_turns(
         lambda: FI._launch(pools[0], pc_depth, rgbp, cam_vec, bpos, prow),
         lambda: FI.fused_integrate_rows_ref(pools[1], pc_depth, rgbp,
                                             cam_vec, bpos, prow))
-    k1 = dict(max_abs_err=max(err.values()), ms=k1_ms, plain_ms=k1_plain,
-              window_blocks=A)
+    # sdf, sumsq and weight (12 B) read per voxel; rgbp (4 B) read and
+    # 16 B written per updated voxel; the frame (depth + rgb), bpos, prow
+    # and the cam vector read once; flags f32[A,4] written.  ~60 f32
+    # operations per voxel (projection, fuse, colour blend, Welford)
+    nbytes = (A * 512 * 12 + updated * 20 + ROWS * COLS * 8 + A * (12 + 8)
+              + 128 + A * 16)
+    k1 = kernel_record(t, max(err.values()), nbytes, A * 512 * 60)
+    k1["window_blocks"] = A
     del pools, src
 
     # K2 at the starvation readback's shapes: the frame-41 window's voxels
@@ -229,10 +294,21 @@ def compare_kernels(depths, rgb):
         f"max |diff| {k2_err}")
     assert torch.equal(sk, st), "K2 differs from its twin"
     assert n_front > 100000
-    k2_ms, k2_plain = time_in_turns(
+    # one PyTorch call that does K2's gather: torch.take over the same flat
+    # index into both channels (the index is built outside the timing, and
+    # the call does not apply the mask)
+    flat = torch.where(ok, row.long() * COLS + col, 0)[:, None, :]
+    idx = flat + torch.arange(2, device=dev)[None, :, None] * HW
+    assert torch.equal(torch.where(ok[:, None, :], torch.take(zimg, idx), 0.0),
+                       sk)
+    t = time_in_turns(
         lambda: SI._launch(zimg, row, col, ok),
-        lambda: SI.sample_image_ref(zimg, row, col, ok))
-    k2 = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain)
+        lambda: SI.sample_image_ref(zimg, row, col, ok),
+        lambda: torch.take(zimg, idx))
+    # row, col (4 B each) and ok (1 B) read and 8 B written per lane; the
+    # two-channel image read once; ~2 integer operations per lane
+    lanes = A * 512
+    k2 = kernel_record(t, k2_err, lanes * 17 + 2 * HW * 4, lanes * 2)
     return k1, k2
 
 
@@ -293,7 +369,191 @@ def compare_small_scene():
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# LiDAR scene: tools/bench_extra.py's synthetic scan, in numpy
+# ---------------------------------------------------------------------------
+
+def lidar_cloud(org, rng, rows=L_ROWS, cols=L_COLS, wall=L_WALL,
+                az_offset=0.0):
+    """tools/bench_extra.py::synthetic_lidar_cloud in the z-up convention
+    of the spherical model: beams at elevations -0.4..0.25 rad and `cols`
+    azimuths, seen from `org`, hit a ground plane at z = L_GROUND and a
+    cylinder wall of radius `wall` about the world's z axis; 1 cm range
+    noise.  Returns f32[rows*cols, 3] in the sensor frame (identity
+    rotation); a beam with no hit is the zero point."""
+    import numpy as np
+    el = np.linspace(-0.4, 0.25, rows)[:, None]
+    az = (np.linspace(-np.pi, np.pi, cols, endpoint=False)
+          + az_offset)[None, :]
+    d = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az) + 0 * el,
+                  np.sin(el) + 0 * az], axis=-1)
+    org = np.asarray(org, np.float64)
+    tz = np.where(d[..., 2] < -1e-4, (L_GROUND - org[2]) / d[..., 2],
+                  np.inf)
+    dx, dy = d[..., 0], d[..., 1]
+    a = dx * dx + dy * dy
+    b = 2 * (org[0] * dx + org[1] * dy)
+    c = org[0] ** 2 + org[1] ** 2 - wall ** 2
+    disc = np.maximum(b * b - 4 * a * c, 0.0)
+    tc = np.where(a > 1e-9, (-b + np.sqrt(disc)) / (2 * np.maximum(a, 1e-9)),
+                  np.inf)
+    t = np.minimum(tz, np.where(tc > 0, tc, np.inf))
+    t = np.where(np.isfinite(t), t, 0.0)
+    t = t + rng.normal(0, 0.01, t.shape) * (t > 0)
+    return (d * t[..., None]).reshape(-1, 3).astype(np.float32)
+
+
+def lidar_pose(i):
+    """Forward 0.5 m per scan (tools/bench_extra.py::bench_lidar)."""
+    import numpy as np
+    return np.array([0.5 * i, 0.0, 0.0], np.float32)
+
+
+def make_lidar_wrapper(device, cloud0, num_blocks=1 << 18):
+    """The port's GeoWrapper at configurations/newer_college.cfg's settings
+    with tools/bench_extra.py's LiDAR capacities (2^18 blocks, 2^16
+    buckets, window cap 2^17, 2^13 allocations per scan); the spherical
+    intrinsics are fit to the first cloud, as the ply runner does."""
+    from mrhash_tpu_torch.apps.utils.camera import (
+        CameraModel, calculate_spherical_intrinsics)
+    from mrhash_tpu_torch.geowrapper import GeoWrapper
+    gw = GeoWrapper(sdf_truncation=0.40, sdf_truncation_scale=0.0,
+                    integration_weight_sample=1, virtual_voxel_size=0.20,
+                    n_frames_invalidate_voxels=0, voxel_extents_scale=1,
+                    marching_cubes_threshold=1.5, min_weight_threshold=5,
+                    min_depth=0.2, max_depth=100.0, num_blocks=num_blocks,
+                    num_buckets=1 << 16, max_active_blocks=1 << 17,
+                    max_alloc_per_frame=1 << 13, profiling=False,
+                    device=device)
+    K, _, _, _ = calculate_spherical_intrinsics(cloud0[
+        (cloud0 != 0).any(axis=1)], L_ROWS, L_COLS)
+    gw.setCamera(K[0, 0], K[1, 1], K[0, 2], K[1, 2], L_ROWS, L_COLS, 0.2,
+                 100.0, CameraModel.Spherical)
+    return gw
+
+
+def feed_lidar(gw, i, clouds):
+    gw.setCurrPose(lidar_pose(i), [0.0, 0.0, 0.0, 1.0])
+    gw.setPointCloud(clouds[i], False)
+    gw.compute()
+
+
+def compare_lidar_kernel(clouds):
+    """Drive the LiDAR slice L_COMPARE_AT scans, then hold K3 against its
+    twin on the next scan's window, range image and projection: sdf,
+    sumsq, weight and the GC flags must be equal."""
+    import torch
+
+    from mrhash_tpu_torch.core.state import VoxelPool
+    from mrhash_tpu_torch.ops import camera as C
+    from mrhash_tpu_torch.ops import fused_integrate_points as FIP
+    from mrhash_tpu_torch.ops import integrate as I
+
+    dev = torch.device("cuda")
+    gw = make_lidar_wrapper("cuda", clouds[0])
+    for i in range(L_COMPARE_AT):
+        feed_lidar(gw, i, clouds)
+    cfg = gw.cfg
+    cam = C.with_pose(gw.camera, gw.curr_rot, lidar_pose(L_COMPARE_AT))
+    points = torch.from_numpy(clouds[L_COMPARE_AT]).to(dev)
+    keys, valid = I.alloc_candidates_points(
+        cfg, cam, points, cfg.dda_steps(cfg.max_integration_distance))
+    I.alloc_blocks(cfg, gw.state.table, keys, valid, gw.state.frame)
+    _, bpos, bptr, _ = I.compact_active(cfg, gw.state.table)
+    img, pix, r_vox, prow, consts = I.points_window(cfg, cam, points, bpos,
+                                                    bptr)
+    src = gw.state.pool
+    pools = [VoxelPool(**{f: getattr(src, f).clone() for f in
+                          VoxelPool.FIELDS}) for _ in range(2)]
+    del gw
+    fk = FIP.fused_integrate_points_rows(pools[0], img, pix, r_vox, prow,
+                                         consts)
+    ft = FIP.fused_integrate_points_rows_ref(pools[1], img, pix, r_vox,
+                                             prow, consts)
+    torch.cuda.synchronize()
+    rows = prow.long()
+    err = {f: float((getattr(pools[0], f)[rows].double()
+                     - getattr(pools[1], f)[rows].double()).abs().max())
+           for f in ("sdf", "sumsq", "weight")}
+    A = prow.shape[0]
+    updated = int((pools[0].weight[rows] > src.weight[rows]).sum())
+    in_image = int((pix >= 0).sum())
+    log(f"compare K3: window {A} blocks, {in_image} in-image lanes, "
+        f"{updated} voxels updated, max |diff| {err}")
+    assert all(v == 0 for v in err.values()), err
+    assert torch.equal(fk, ft), "K3 GC flags differ"
+    assert updated > 50000, "K3 integrated almost nothing"
+    # the twin's constants as a device tensor, so that its graph holds no
+    # host-to-device copy
+    c_dev = torch.tensor(consts, dtype=torch.float32, device=dev)
+    t = time_in_turns(
+        lambda: FIP._launch(pools[0], img, pix, r_vox, prow, consts),
+        lambda: FIP.fused_integrate_points_rows_ref(pools[1], img, pix,
+                                                    r_vox, prow, c_dev))
+    # pix, r_vox, sdf and weight (16 B) read per voxel; sumsq (4 B) read
+    # and 12 B written per updated voxel; the range image and prow read
+    # once; flags f32[A,2] written.  ~15 f32 operations per voxel
+    nbytes = (A * 512 * 16 + updated * 16 + L_ROWS * L_COLS * 4 + A * 4
+              + A * 8)
+    k3 = kernel_record(t, max(err.values()), nbytes, A * 512 * 15)
+    k3.update(window_blocks=A, updated=updated)
+    return k3
+
+
+def compare_small_lidar():
+    """The whole LiDAR slice on the card against the slice on the CPU
+    (where the tests hold it against the JAX reference): 3 scans of a 16x128
+    sensor (beams half a column off the raster edges, 12 m wall).  Same key
+    set; the CPU's and the card's atan2/asin may put a voxel on another
+    pixel, so weight flips plus sdf differences beyond 2e-3 may reach
+    max(16, 1e-4 x lanes), the tests' bound."""
+    import numpy as np
+    import torch
+
+    from mrhash_tpu_torch.core import pipeline
+    from mrhash_tpu_torch.core.state import MapConfig, make_state
+    from mrhash_tpu_torch.ops import camera as C
+
+    rows, cols = 16, 128
+    cfg = MapConfig(virtual_voxel_size=0.20, sdf_truncation=0.40,
+                    max_integration_distance=40.0, num_blocks=1 << 12,
+                    num_buckets=1 << 11, max_active_blocks=1 << 11,
+                    max_alloc_per_frame=1 << 11)
+    rng = np.random.default_rng(0)
+    poses = [np.array([0.4 * i, 0.0, 0.0], np.float32) for i in range(3)]
+    scans = [lidar_cloud(t, rng, rows, cols, 12.0, np.pi / cols)
+             for t in poses]
+    maps = {}
+    for dev in ("cpu", "cuda"):
+        st = make_state(cfg.num_blocks, cfg.num_buckets, dev)
+        cam0 = C.make_camera(cols / (2 * np.pi), rows / 0.65, cols / 2,
+                             rows / 2, rows, cols, 0.2, 40.0, C.SPHERICAL,
+                             device=dev)
+        for t, pts in zip(poses, scans):
+            cam = C.with_pose(cam0, np.eye(3, dtype=np.float32), t)
+            st, _ = pipeline.integrate_points(cfg, st, cam,
+                                              torch.from_numpy(pts).to(dev))
+        occ = (st.table.ptr != -2).cpu().numpy()
+        pos = st.table.pos.cpu().numpy()[occ]
+        rows_ = st.table.ptr.cpu().numpy()[occ] // 512
+        order = np.lexsort(pos.T)
+        maps[dev] = (pos[order], {f: getattr(st.pool, f).cpu().numpy()
+                                  [rows_[order]] for f in
+                                  ("sdf", "sumsq", "weight")})
+    (pc, mc), (pg, mg) = maps["cpu"], maps["cuda"]
+    assert np.array_equal(pc, pg), "block key sets differ"
+    assert int((mc["weight"] > 0).sum()) > 20000
+    flips = int((mc["weight"] != mg["weight"]).sum())
+    both = (mc["weight"] > 0) & (mg["weight"] > 0)
+    far = int((np.abs(mc["sdf"] - mg["sdf"]) > 2e-3)[both].sum())
+    exact = int((mc["sdf"] == mg["sdf"])[both].sum())
+    bound_n = max(16, int(mc["weight"].size * 1e-4))
+    log(f"compare LiDAR slice cuda vs cpu (16x128, 3 scans): {len(pc)} "
+        f"blocks, {int(both.sum())} weighted lanes in both, {flips} weight "
+        f"flips, {far} sdf beyond 2e-3, {exact} sdf bit-equal")
+    assert flips + far <= bound_n, (flips, far, bound_n)
+
+# ---------------------------------------------------------------------------
+# phase 4: the RGB-D path
 # ---------------------------------------------------------------------------
 
 def run_slice(depths, rgb):
@@ -353,6 +613,66 @@ def run_slice(depths, rgb):
                           peak_gib=peak / 2**30)
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the LiDAR path
+# ---------------------------------------------------------------------------
+
+def run_lidar(clouds):
+    import numpy as np
+    import torch
+
+    from mrhash_tpu_torch.ops import fused_integrate_points as FIP
+
+    gw = make_lidar_wrapper("cuda", clouds[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FIP.launch_count = 0
+    frame_ms, occupied = [], []
+    for i in range(L_FRAMES):
+        t0 = time.perf_counter()
+        feed_lidar(gw, i, clouds)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        occupied.append(gw.last_stats["occupied_blocks"])
+    launches = FIP.launch_count
+    peak = torch.cuda.max_memory_allocated()
+    steady = frame_ms[L_STEADY:]
+    stats = gw.last_stats
+    log(f"lidar: {L_FRAMES} scans of {L_ROWS}x{L_COLS}, K3 launches "
+        f"{launches}")
+    log(f"lidar: window blocks first {occupied[0]} last {occupied[-1]}; "
+        f"high_free {stats['high_free']}")
+    log(f"lidar: scans {L_STEADY}-{L_FRAMES - 1}: median "
+        f"{statistics.median(steady):.3f} ms, mean "
+        f"{statistics.fmean(steady):.3f} ms, FPS "
+        f"{1e3 / statistics.fmean(steady):.2f}; first scan "
+        f"{frame_ms[0]:.1f} ms")
+    log(f"lidar: peak device memory {peak / 2**30:.3f} GiB")
+    assert launches == L_FRAMES, launches
+
+    t0 = time.perf_counter()
+    gw.streamAllOut()
+    with tempfile.TemporaryDirectory() as tmp:
+        gw.extractMesh(os.path.join(tmp, "mesh.ply"))
+    mesh_s = time.perf_counter() - t0
+    v, f = gw.getVertices(), gw.getFaces()
+    log(f"lidar mesh: {v.shape[0]} vertices, {f.shape[0]} faces "
+        f"(streamAllOut + extractMesh {mesh_s:.1f} s)")
+    assert v.shape[0] > 10000, v.shape
+    assert np.isfinite(v).all()
+    ground = np.abs(v[:, 2] - L_GROUND) < L_TOL
+    wall = np.abs(np.hypot(v[:, 0], v[:, 1]) - L_WALL) < L_TOL
+    on = float((ground | wall).mean())
+    log(f"lidar mesh: {on:.4f} of vertices within {L_TOL} m of the ground "
+        f"or the wall ({float(ground.mean()):.4f} ground, "
+        f"{float(wall.mean()):.4f} wall)")
+    assert on > 0.95, on
+    return launches, dict(median_ms=statistics.median(steady),
+                          mean_ms=statistics.fmean(steady),
+                          fps=1e3 / statistics.fmean(steady),
+                          peak_gib=peak / 2**30, window=occupied[-1])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -377,42 +697,65 @@ def main():
     lib = cuda_lib.build()
     cuda_lib.library()
     log(f"build: {os.path.relpath(lib)} in {time.perf_counter() - t0:.1f} s")
+    from mrhash_tpu_torch import native
+    t0 = time.perf_counter()
+    lib = native.build()
+    native.load()
+    log(f"build: {os.path.relpath(lib)} in {time.perf_counter() - t0:.1f} s")
 
-    # scene
+    # scenes
     rng = np.random.default_rng(0)
     rgb = rng.integers(0, 255, (ROWS, COLS, 3)).astype(np.uint8)
     depths = []
     for i in range(ORBIT):
         rot, trans, _ = orbit_pose(i)
         depths.append(room_depth(rot, trans, rng))
+    clouds = [lidar_cloud(lidar_pose(i), rng) for i in range(L_FRAMES)]
 
     # 3. compare
     compare_small_scene()
+    compare_small_lidar()
     k1, k2 = compare_kernels(depths, rgb)
     torch.cuda.empty_cache()
-    log(f"compare: K1 {k1['ms']:.4f} ms (twin {k1['plain_ms']:.4f} ms) over "
-        f"{k1['window_blocks']} blocks; K2 {k2['ms']:.4f} ms "
-        f"(twin {k2['plain_ms']:.4f} ms) [{smi}]")
+    log(f"compare: K1 {k1['ms']:.4f} ms (twin {k1['plain_ms']:.4f} ms, "
+        f"bound {k1['bound_ms']:.4f} ms) over {k1['window_blocks']} blocks; "
+        f"K2 {k2['ms']:.4f} ms (twin {k2['plain_ms']:.4f} ms, torch.take "
+        f"{k2['library_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms) [{smi}]")
+    k3 = compare_lidar_kernel(clouds)
+    torch.cuda.empty_cache()
+    log(f"compare: K3 {k3['ms']:.4f} ms (twin {k3['plain_ms']:.4f} ms, "
+        f"bound {k3['bound_ms']:.4f} ms, {k3['bytes']} B) over "
+        f"{k3['window_blocks']} blocks [{smi}]")
 
-    # 4. run
+    # 4. the RGB-D path
     launches, run = run_slice(depths, rgb)
     log(f"run: {run['fps']:.2f} FPS, median {run['median_ms']:.3f} ms/frame, "
         f"peak {run['peak_gib']:.3f} GiB [{smi}]")
+    torch.cuda.empty_cache()
 
-    kernels = [
-        dict(name="fused_integrate_rows", route="cuda",
-             source="mrhash_tpu_torch/csrc/fused_integrate.cu",
-             replaces="mrhash_tpu/ops/fused_integrate.py:115",
-             launches=launches["fused_integrate_rows"],
-             max_abs_err=k1["max_abs_err"], ms=k1["ms"],
-             plain_ms=k1["plain_ms"]),
-        dict(name="sample_image", route="cuda",
-             source="mrhash_tpu_torch/csrc/sample_image.cu",
-             replaces="mrhash_tpu/ops/pallas_kernels.py:121",
-             launches=launches["sample_image"],
-             max_abs_err=k2["max_abs_err"], ms=k2["ms"],
-             plain_ms=k2["plain_ms"]),
-    ]
+    # 5. the LiDAR path
+    launches["fused_integrate_points_rows"], lrun = run_lidar(clouds)
+    log(f"lidar: {lrun['fps']:.2f} FPS, median {lrun['median_ms']:.3f} "
+        f"ms/scan, mean {lrun['mean_ms']:.3f} ms/scan, window "
+        f"{lrun['window']} blocks, peak {lrun['peak_gib']:.3f} GiB [{smi}]")
+
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "mrhash_tpu"))
+    assert not loaded, f"the port loaded {loaded}"
+
+    kernels = []
+    for name, src, replaces, rec in (
+            ("fused_integrate_rows", "fused_integrate.cu",
+             "mrhash_tpu/ops/fused_integrate.py:115", k1),
+            ("sample_image", "sample_image.cu",
+             "mrhash_tpu/ops/pallas_kernels.py:121", k2),
+            ("fused_integrate_points_rows", "fused_integrate_points.cu",
+             "mrhash_tpu/ops/fused_integrate.py:539", k3)):
+        kernels.append(dict(
+            name=name, route="cuda", source="mrhash_tpu_torch/csrc/" + src,
+            replaces=replaces, launches=launches[name],
+            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,8 @@ import argparse
 
 from tqdm import tqdm
 
-from mrhash_tpu.apps.utils.camera import Camera, CameraModel
-from mrhash_tpu.apps.utils.readers import DepthReader
+from mrhash_tpu_torch.apps.utils.camera import Camera, CameraModel
+from mrhash_tpu_torch.apps.utils.readers import DepthReader
 from mrhash_tpu_torch.apps.runner_common import (build_geowrapper,
                                                  load_config, pinhole_K,
                                                  prepare_results_dir)

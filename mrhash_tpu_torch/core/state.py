@@ -13,7 +13,7 @@ import dataclasses
 
 import torch
 
-from mrhash_tpu import params as P
+from mrhash_tpu_torch import params as P
 from mrhash_tpu_torch.ops import hashtable as H
 
 LANES = P.TOTAL_SDF_BLOCK_SIZE

@@ -15,7 +15,7 @@ import threading
 import numpy as np
 import torch
 
-from mrhash_tpu import params as P
+from mrhash_tpu_torch import params as P
 from mrhash_tpu_torch.core.state import MapConfig, MapState
 from mrhash_tpu_torch.ops import hashtable as H
 from mrhash_tpu_torch.ops import integrate as I
@@ -121,7 +121,7 @@ class Streamer:
         """Debug PLY export (Streamer::serializeData, streamer.cpp:103-160):
         per-voxel points coloured red (res 0) / green (res 1) with
         weight + sdf attributes, plus per-block 'hash points'."""
-        from mrhash_tpu.utils import plyio
+        from mrhash_tpu_torch.utils import plyio
         vvs = self.cfg.virtual_voxel_size
         hash_pts, vox_pts, vox_cols, vox_w, vox_sdf = [], [], [], [], []
         for group in self.grid.chunks.values():

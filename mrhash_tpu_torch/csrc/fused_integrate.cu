@@ -18,9 +18,10 @@
 // The CTA then block-reduces the GC flags of its row: min |sdf| over
 // weighted lanes, max weight, weight sum, sumsq sum over weighted lanes.
 //
-// Bound: bytes.  Per voxel 16 B of pool read (sdf, sumsq, weight, rgbp),
-// 8 B of frame read (depth + rgb), at most 16 B written (only updated
-// lanes are stored), ~60 flops.  A 512-thread CTA reads its row with fully
+// Bound: bytes.  Per voxel 12 B of pool read (sdf, sumsq, weight), per
+// updated voxel 4 B more (rgbp) and 16 B written (only updated lanes are
+// loaded for colour and stored); the frame (depth + rgb) read once;
+// ~60 flops per voxel.  A 512-thread CTA reads its row with fully
 // coalesced 2 KB loads per field; the frame reads are gathers, but
 // neighbouring voxels land on neighbouring pixels, so they hit L2/L1
 // (the 1200x680 frame is 6.5 MB and stays in the 50 MB L2).
@@ -104,7 +105,6 @@ __global__ void __launch_bounds__(kLanes) fused_integrate_rows_kernel(
   const float sdf0 = sdf[off];
   const float ssq0 = sumsq[off];
   const int32_t w0 = weight[off];
-  const int32_t rgbp0 = rgbp[off];
 
   const bool depth_ok2 = ok && depth != 0.0f && depth <= max_int;
   float s = depth - pcz;
@@ -126,6 +126,7 @@ __global__ void __launch_bounds__(kLanes) fused_integrate_rows_kernel(
     const float g_new = (float)((pk >> 8) & 255);
     const float b_new = (float)((pk >> 16) & 255);
     const bool first = w0 == 0;
+    const int32_t rgbp0 = rgbp[off];   // read only where the lane updates
     const float r_old = first ? r_new : (float)(rgbp0 & 255);
     const float g_old = first ? g_new : (float)((rgbp0 >> 8) & 255);
     const float b_old = first ? b_new : (float)((rgbp0 >> 16) & 255);

@@ -2,12 +2,15 @@
 
 Same constructor arguments and method names as mrhash_tpu/geowrapper.py
 (the reference's bound class, geowrapper.{h,cpp}), for the
-single-resolution RGB-D path: setCamera / setCurrPose / setDepthImage /
-setRGBImage / compute, then streamAllOut / extractMesh / serializeData /
-clearBuffers.  Every frame runs eagerly on `device` ("cuda" by default).
-Out of this slice, and raising instead of skipping: LiDAR input, 3D Gaussian
-Splatting, multi-resolution (sdf_var_threshold > 0), the viewer thread, and
-streaming triggered by the heap watermark (ROADMAP A8).
+single-resolution RGB-D and LiDAR paths: setCamera / setCurrPose /
+setDepthImage + setRGBImage or setPointCloud / compute, then streamAllOut /
+extractMesh / serializeData / clearBuffers.  Every frame runs eagerly on
+`device` ("cuda" by default).  Out of these slices, and raising instead of
+skipping: 3D Gaussian Splatting, multi-resolution (sdf_var_threshold > 0),
+the non-projective LiDAR update (projective_sdf=False) and starvation under
+the spherical model (n_frames_invalidate_voxels > 0 with a spherical
+camera), the viewer thread, and streaming triggered by the heap watermark
+(ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -16,15 +19,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from mrhash_tpu import native
-from mrhash_tpu import params as P
-from mrhash_tpu.core import mesh_post
-from mrhash_tpu.utils import plyio
-from mrhash_tpu.utils.profiler import Profiler
-from mrhash_tpu_torch.core import pipeline
+from mrhash_tpu_torch import native
+from mrhash_tpu_torch import params as P
+from mrhash_tpu_torch.core import mesh_post, pipeline
 from mrhash_tpu_torch.core.state import MapConfig, make_state
 from mrhash_tpu_torch.core.streaming import ChunkGrid, Streamer
 from mrhash_tpu_torch.ops import camera as C
+from mrhash_tpu_torch.utils import plyio
+from mrhash_tpu_torch.utils.profiler import Profiler
 
 
 def _quat_to_rot(qx, qy, qz, qw):
@@ -94,7 +96,7 @@ class GeoWrapper:
                                       "> 0): not ported yet")
         # projective_sdf only steers the LiDAR update; RGB-D ignores it, as
         # in the reference
-        del projective_sdf
+        self._projective_sdf = bool(projective_sdf)
         to_alloc = _device_free_bytes(self.device) * P.SDF_BLOCKS_RATIO
         if num_blocks is None:
             num_blocks = int(to_alloc * P.SDF_BLOCKS_RATIO
@@ -126,8 +128,12 @@ class GeoWrapper:
                                     max_depth, device=self.device)
         self.curr_rot = np.eye(3, dtype=np.float32)
         self.curr_trans = np.zeros(3, np.float32)
+        self.camera_in_lidar = np.eye(4, dtype=np.float32)
         self._depth_img = None
         self._rgb_img = None
+        self._points = None
+        self._normals = None
+        self._weights = None
         self._high_free = self.cfg.num_blocks
         self.last_stats = None
         self.integration_profiler = Profiler("integration_profiler",
@@ -136,10 +142,21 @@ class GeoWrapper:
     # ------------------------------------------------------------------ inputs
     def setCamera(self, fx, fy, cx, cy, rows, cols, min_depth, max_depth,
                   camera_model=0):
-        if int(camera_model) != C.PINHOLE:
-            raise NotImplementedError("spherical (LiDAR) camera: not ported")
+        model = int(camera_model)
+        if model == C.SPHERICAL:
+            if not self._projective_sdf:
+                raise NotImplementedError(
+                    "projective_sdf=False (the point-centric LiDAR update): "
+                    "not ported yet (ROADMAP A10)")
+            if self.cfg.n_frames_invalidate_voxels > 0:
+                raise NotImplementedError(
+                    "starvation under the spherical camera model "
+                    "(n_frames_invalidate_voxels > 0): not ported yet "
+                    "(ROADMAP A10)")
+        elif model != C.PINHOLE:
+            raise ValueError(f"setCamera: unknown camera model {model}")
         self.camera = C.make_camera(fx, fy, cx, cy, rows, cols, min_depth,
-                                    max_depth, device=self.device)
+                                    max_depth, model, device=self.device)
         # max integration distance follows the camera (geowrapper.cpp:111)
         self.cfg = dataclasses.replace(
             self.cfg, max_integration_distance=float(max_depth))
@@ -150,12 +167,17 @@ class GeoWrapper:
         self.curr_rot = _quat_to_rot(q[0], q[1], q[2], q[3])
         self.curr_trans = np.asarray(pose, np.float32).reshape(3)
 
+    def setCameraInLidar(self, camera_in_lidar):
+        """Stored, as in the reference (geowrapper.cpp:94-96)."""
+        self.camera_in_lidar = np.asarray(camera_in_lidar, np.float32)
+
     def setDepthImage(self, depth):
         """depth: [H,W] metric depth (numpy or a torch tensor)."""
         depth = torch.as_tensor(depth, dtype=torch.float32)
         if depth.dim() != 2:
             raise ValueError("setDepthImage: expected a 2D array")
         self._depth_img = depth
+        self._points = None
 
     def setRGBImage(self, rgb):
         """rgb: [H,W,3] uint8 (numpy or a torch tensor)."""
@@ -167,7 +189,28 @@ class GeoWrapper:
         self._rgb_img = rgb
 
     def setPointCloud(self, points, arg2=False):
-        raise NotImplementedError("LiDAR input: not ported yet (ROADMAP A10)")
+        """setPointCloud(points, compute_normals) or setPointCloud(points,
+        normals) (pygeowrapper.cpp:66-67); points [N,3] in the sensor frame.
+        Normals (MADtree, from the host library, when compute_normals) and
+        per-point weights are kept as the reference keeps them; the
+        projective update reads neither.  Unlike the reference, the cloud
+        is not padded to a power-of-two bucket (PORT_NOTES.md P16)."""
+        points = np.asarray(points, np.float32).reshape(-1, 3)
+        if isinstance(arg2, (bool, np.bool_)):
+            if arg2:
+                normals, weights = native.estimate_normals(points)
+            else:
+                normals = np.zeros_like(points)
+                weights = np.ones((points.shape[0],), np.float32)
+        else:
+            normals = np.asarray(arg2, np.float32).reshape(-1, 3)
+            if normals.shape[0] == 3 * points.shape[0]:
+                normals = normals.reshape(-1, 3, 3)[:, 0, :]  # eigvec col 0
+            weights = np.ones((points.shape[0],), np.float32)
+        self._points = torch.from_numpy(points)
+        self._normals = normals
+        self._weights = weights
+        self._depth_img = None
 
     # ------------------------------------------------------------------ compute
     def compute(self):
@@ -177,26 +220,31 @@ class GeoWrapper:
                 f"GeoWrapper.compute: {self._high_free} free blocks of "
                 f"{self.cfg.num_blocks} reached the stream-out watermark; "
                 "streaming is not ported yet (ROADMAP A8) — raise num_blocks")
-        if self._depth_img is None or self._rgb_img is None:
+        # setPointCloud and setDepthImage each clear the other's input
+        lidar = self._points is not None
+        if not lidar and (self._depth_img is None or self._rgb_img is None):
             return
         cam = C.with_pose(self.camera, self.curr_rot, self.curr_trans)
         with self.integration_profiler.event():
-            self.state, stats = pipeline.integrate_rgbd(
-                self.cfg, self.state, cam, self._depth_img.to(self.device),
-                self._rgb_img.to(self.device))
+            if lidar:
+                self.state, stats = pipeline.integrate_points(
+                    self.cfg, self.state, cam, self._points.to(self.device))
+            else:
+                self.state, stats = pipeline.integrate_rgbd(
+                    self.cfg, self.state, cam,
+                    self._depth_img.to(self.device),
+                    self._rgb_img.to(self.device))
         self.last_stats = stats
         self._high_free = stats["high_free"]
         self.integration_profiler.write(stats["occupied_blocks"])
 
     # ------------------------------------------------------------------ meshing
     def extractMesh(self, filename: str):
-        """Host-native extractMesh (native/mrhash_mesh.cpp, the reference
-        package's read-only path): snapshot the device blocks over a copy of
-        the host chunk grid, run the Transvoxel sweep on the host, write an
-        ASCII PLY.  The device map stays live."""
-        if native.load() is None:
-            raise RuntimeError("extractMesh: the native host library "
-                               "(mrhash_tpu.native) did not load")
+        """Host-native extractMesh (native/mrhash_mesh.cpp through the
+        port's `native` loader, the reference's read-only path): snapshot
+        the device blocks over a copy of the host chunk grid, run the
+        Transvoxel sweep on the host, write an ASCII PLY.  The device map
+        stays live."""
         snap = ChunkGrid(np.asarray(self.cfg.voxel_extents, np.float32))
         snap.chunks = dict(self.streamer.grid.chunks)
         self.streamer.snapshot_into(self.state, snap, mesh_only=True)
@@ -205,14 +253,11 @@ class GeoWrapper:
         if groups:
             cat = {k: np.concatenate([g[k] for g in groups])
                    for k in ("pos", "res", "sdf", "w", "rgb")}
-            out = native.extract_mesh_host(
+            tri_pos, tri_col = native.extract_mesh_host(
                 cat["pos"], cat["res"], cat["sdf"], cat["w"], cat["rgb"],
                 self.cfg.virtual_voxel_size, self.cfg.voxel_extents,
                 self.cfg.marching_cubes_threshold,
                 self.cfg.min_weight_threshold)
-            if out is None:
-                raise RuntimeError("extractMesh: native sweep unavailable")
-            tri_pos, tri_col = out
             if tri_pos.shape[0] > 0:
                 self.mesh.add_triangles(tri_pos, tri_col)
         plyio.write_mesh_ply(filename, self.mesh.vertices, self.mesh.faces,

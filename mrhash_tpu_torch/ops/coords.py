@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from mrhash_tpu import params as P
+from mrhash_tpu_torch import params as P
 
 
 def virtual_voxel_pos_to_world(virtual_voxel_size, voxel_pos):

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (mrhash_tpu_torch/csrc/*.cu).
 
-The kernels are compiled with nvcc into one shared library with a plain C
-interface and loaded with ctypes.  The library lands in
+The kernels are compiled with nvcc, one process per source started
+together, and linked into one shared library with a plain C interface,
+loaded with ctypes.  The library lands in
 mrhash_tpu_torch/_build/, named by a hash of the sources and flags, and is
 built at first use, so a fresh checkout builds it on its first call and a
 changed source never loads a stale binary.  Nothing here runs at import.
@@ -26,13 +27,14 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xcompiler", "-fPIC")
 
 _lib = None
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _i64 = ctypes.c_int64
+_f = ctypes.c_float
 SIGNATURES = {
     # depth, rgbp, cols, cam, bpos, prow, n_blocks,
     # sdf, sumsq, weight, rgbp_pool, flags, stream
@@ -40,6 +42,11 @@ SIGNATURES = {
                                     _vp, _vp, _vp, _vp, _vp, _vp],
     # img, rows, cols, row, col, ok, n_blocks, out, stream
     "mrhash_sample_image": [_vp, _i, _i, _vp, _vp, _vp, _i64, _vp, _vp],
+    # img, pix, r_vox, prow, n_blocks, t0, t1, max_int, w_sample, w_max,
+    # vvs, sdf, sumsq, weight, flags, stream
+    "mrhash_fused_integrate_points_rows": [_vp, _vp, _vp, _vp, _i64,
+                                           _f, _f, _f, _f, _f, _f,
+                                           _vp, _vp, _vp, _vp, _vp],
 }
 
 
@@ -71,17 +78,30 @@ def build():
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cu = [s for s in sources() if s.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)   # atomic: concurrent builders never see a partial
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        # one nvcc per source, all started together, then one link
+        cu = [s for s in sources() if s.endswith(".cu")]
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in cu]
+        jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+                for s, o in zip(cu, objs)]
+        procs = [subprocess.Popen(c, stderr=subprocess.PIPE, text=True)
+                 for c in jobs]
+        for cmd, proc in zip(jobs, procs):
+            _, err = proc.communicate()
+            _check_nvcc(cmd, proc.returncode, err)
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _check_nvcc(cmd, proc.returncode, proc.stderr)
+        os.replace(lib, out)   # atomic: concurrent builders never see a
+        #                        partial library
     return out
+
+
+def _check_nvcc(cmd, rc, stderr):
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{stderr}")
 
 
 def library():

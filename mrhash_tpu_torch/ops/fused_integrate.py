@@ -8,8 +8,8 @@ load at the voxel's own pixel, truncation, combineVoxel and the Welford
 update, written in place into the block's pool row, then a block reduction
 of the GC flags.
 
-Bound on the card: bytes — 16 B of pool read, 8 B of frame read and at
-most 16 B written per voxel.  The TPU kernel's patch + one-hot MXU
+Bound on the card: bytes — 12 B of pool read per voxel, 4 B of rgbp read
+and 16 B written per updated voxel, the frame read once.  The TPU kernel's patch + one-hot MXU
 sampling and the pack/scatter of pool rows existed to keep the frame and
 the rows in VMEM; on Hopper a direct load of each voxel's pixel (L2
 resident) and an in-place row update move the fewest bytes.

@@ -23,7 +23,7 @@ import dataclasses
 
 import torch
 
-from mrhash_tpu import params as P
+from mrhash_tpu_torch import params as P
 
 FREE = P.FREE_ENTRY
 MASK32 = 0xFFFFFFFF

@@ -1,5 +1,5 @@
 """TSDF allocation, integration, starvation and garbage collection for the
-single-resolution RGB-D path.
+single-resolution RGB-D and LiDAR paths.
 
 Port of the res-0 parts of mrhash_tpu/ops/integrate.py.  Torch is eager,
 so the compacted block window is exactly as long as the number of
@@ -10,16 +10,20 @@ pool row is bptr // 512.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from mrhash_tpu import params as P
+from mrhash_tpu_torch import params as P
 from mrhash_tpu_torch.core.state import (LANES, MapConfig, VoxelPool,
                                          pack_rgb, unpack_rgb)
 from mrhash_tpu_torch.ops import camera as C
 from mrhash_tpu_torch.ops import coords as X
 from mrhash_tpu_torch.ops import fused_integrate as FI
+from mrhash_tpu_torch.ops import fused_integrate_points as FIP
 from mrhash_tpu_torch.ops import hashtable as H
 from mrhash_tpu_torch.ops import sample_image as SI
+from mrhash_tpu_torch.utils.profiler import stage
 
 INF = float("inf")
 _SALT0 = 2654435761  # Knuth multiplicative constant
@@ -336,6 +340,134 @@ def fused_integrate_depth(cfg: MapConfig, pool: VoxelPool, cam: C.Camera,
     flags = FI.fused_integrate_rows(
         pool, pc_depth.contiguous(), pack_rgb(rgb_img).contiguous(), cam_vec,
         bpos.contiguous(), _block_rows(bptr).contiguous())
+    return dict(gc_min_s=flags[:, 0], gc_max_w=flags[:, 1],
+                unserved_blocks=0)
+
+
+# ---------------------------------------------------------------------------
+# LiDAR: per-point allocation, scan raster, spherical projection, kernel K3
+# ---------------------------------------------------------------------------
+
+def alloc_candidates_points(cfg: MapConfig, cam: C.Camera, points,
+                            num_steps: int):
+    """allocBlocks3DKernel (voxel_data_structures.cu:924-1033), projective:
+    per-LiDAR-point DDA along the camera ray through the band [r-t, r+t].
+    points f32[N,3] in the camera frame; a zero point (no return) walks
+    nothing.  No frustum filter (matches the 3D kernel).  Returns flat
+    candidate keys i32[M,3] + valid mask bool[M]."""
+    rng = _norm3(points)
+    cam_dir = points / torch.where(rng == 0, 1.0, rng)
+    rng = rng[..., 0]
+    t = X.get_truncation(rng, cfg.sdf_truncation, cfg.sdf_truncation_scale)
+    d_min = torch.clamp(rng - t, max=cfg.max_integration_distance)
+    d_max = torch.clamp(rng + t, max=cfg.max_integration_distance)
+    ray_valid = (rng != 0.0) & (d_min < d_max)
+    pc_min = points + cam_dir * (d_min - rng)[..., None]
+    pc_max = points + cam_dir * (d_max - rng)[..., None]
+    blocks, mask = _dda_visit(cfg, C.cam_to_world(cam, pc_min),
+                              C.cam_to_world(cam, pc_max), ray_valid,
+                              num_steps)
+    return blocks.reshape(-1, 3), mask.reshape(-1)
+
+
+def scan_raster_mapping(cam: C.Camera, points):
+    """The scan's own elevation mapping (mrhash_tpu: _scan_raster_mapping):
+    the full azimuth circle maps to cam.cols columns, and the elevation
+    span of the scan's returns to cam.rows rows.  Returns 0-d tensors
+    (el_lo, s_el), row = floor((el - el_lo) * s_el + 0.5)."""
+    if points.shape[0] == 0:      # maps like one point with no return
+        points = torch.zeros((1, 3), dtype=torch.float32,
+                             device=points.device)
+    rng = _norm3(points)[..., 0]
+    ok = rng > 1e-6
+    el = torch.asin(torch.clamp(points[..., 2] / torch.where(ok, rng, 1.0),
+                                -1.0, 1.0))
+    el_lo = torch.where(ok, el, INF).amin()
+    el_hi = torch.where(ok, el, -INF).amax()
+    el_lo = torch.where(torch.isfinite(el_lo), el_lo, -1.0)
+    el_hi = torch.where(torch.isfinite(el_hi), el_hi, 1.0)
+    return el_lo, (cam.rows - 1) / torch.clamp(el_hi - el_lo, min=1e-6)
+
+
+def _sph_rowcol(cam: C.Camera, pc, el_lo, s_el):
+    """Raster (row, col) of camera-frame points under the scan mapping.
+    Returns (row i32, col i32, range f32, in_rows bool)."""
+    rng = _norm3(pc)[..., 0]
+    safe = torch.where(rng == 0, 1.0, rng)
+    az = torch.atan2(pc[..., 1], pc[..., 0])
+    el = torch.asin(torch.clamp(pc[..., 2] / safe, -1.0, 1.0))
+    colf = (az + math.pi) * (cam.cols / (2.0 * math.pi))
+    col = torch.clamp(colf.to(torch.int32), 0, cam.cols - 1)
+    row = torch.floor((el - el_lo) * s_el + 0.5).to(torch.int32)
+    return row, col, rng, (row >= 0) & (row < cam.rows)
+
+
+def _sph_ok(cam: C.Camera, rng, in_rows):
+    return in_rows & (rng >= cam.min_depth) & (rng <= cam.max_depth)
+
+
+def rasterize_scan(cam: C.Camera, points, el_lo, s_el):
+    """Min-range rasterization of the scan onto an unpadded f32[rows, cols]
+    image; empty cells hold 0.  The reference's azimuth-wrap pad columns
+    and 8-aligned rows fed its VMEM patch windows (PORT_NOTES.md P14)."""
+    row, col, rng, in_rows = _sph_rowcol(cam, points, el_lo, s_el)
+    ok = _sph_ok(cam, rng, in_rows)
+    HW = cam.rows * cam.cols
+    flat = torch.where(ok, row.to(torch.int64) * cam.cols + col, HW)
+    img = torch.full((HW + 1,), INF, dtype=torch.float32,
+                     device=points.device)
+    img.scatter_reduce_(0, flat, torch.where(ok, rng, INF), "amin")
+    img = img[:HW].reshape(cam.rows, cam.cols)
+    return torch.where(torch.isfinite(img), img, 0.0)
+
+
+def project_window_sph(cfg: MapConfig, cam: C.Camera, bpos, el_lo, s_el):
+    """Per-lane spherical projection of the window's voxels (the geometry
+    of mrhash_tpu's _sph_proj_pack without its patch bookkeeping; computed
+    in torch outside kernel K3, PORT_NOTES.md P15).  Returns pix
+    i32[A,512] = row * cols + col, or -1 where the lane falls outside the
+    image rows or the depth range, and r_vox f32[A,512], the voxel's
+    camera range."""
+    pw = X.virtual_voxel_pos_to_world(cfg.virtual_voxel_size,
+                                      _block_voxel_grid(bpos))
+    row, col, rng, in_rows = _sph_rowcol(cam, C.world_to_cam(cam, pw),
+                                         el_lo, s_el)
+    ok = _sph_ok(cam, rng, in_rows)
+    pix = torch.where(ok, row.clamp(0, cam.rows - 1) * cam.cols + col, -1)
+    return pix, rng
+
+
+def points_window(cfg: MapConfig, cam: C.Camera, points, bpos, bptr):
+    """Kernel K3's operands for one scan over the window: rasterize the
+    scan to a min-range image and project every window voxel to its pixel.
+    Returns (img f32[rows, cols], pix i32[A,512], r_vox f32[A,512],
+    prow i32[A], consts) as ops/fused_integrate_points.py takes them."""
+    with stage("points.raster"):
+        el_lo, s_el = scan_raster_mapping(cam, points)
+        img = rasterize_scan(cam, points, el_lo, s_el)
+    with stage("points.projection"):
+        pix, r_vox = project_window_sph(cfg, cam, bpos, el_lo, s_el)
+        prow = _block_rows(bptr).to(torch.int32)
+    consts = (cfg.sdf_truncation, cfg.sdf_truncation_scale,
+              cfg.max_integration_distance, cfg.integration_weight_sample,
+              cfg.integration_weight_max, cfg.virtual_voxel_size)
+    return img, pix, r_vox, prow, consts
+
+
+def fused_integrate_points(cfg: MapConfig, pool: VoxelPool, cam: C.Camera,
+                           points, bpos, bptr):
+    """One-kernel LiDAR integration over the window (single resolution,
+    projective): the operands of points_window, then kernel K3
+    (ops/fused_integrate_points.py) applies the band-gated update in
+    place (the reference's voxel-centric inversion, deviation D19).  Every
+    in-image voxel reads its own pixel, so there is no element fallback and
+    unserved_blocks is 0 (PORT_NOTES.md P14).
+
+    Returns aux dict(gc_min_s f32[A], gc_max_w f32[A], unserved_blocks=0):
+    the GC flags of the rows after the update."""
+    operands = points_window(cfg, cam, points, bpos, bptr)
+    with stage("points.K3"):
+        flags = FIP.fused_integrate_points_rows(pool, *operands)
     return dict(gc_min_s=flags[:, 0], gc_max_w=flags[:, 1],
                 unserved_blocks=0)
 
