@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time of a LiDAR scan goes, on one NVIDIA card; and an A/B of
-the RGB-D frame time against another checkout of the port.
+"""Where the time of a LiDAR scan and of an online-GS frame goes, on one
+NVIDIA card; and an A/B of the RGB-D frame time against another checkout
+of the port.
 
     python3 chip_profile.py
+    python3 chip_profile.py --gs
     python3 chip_profile.py --rgbd-ab OTHER_ROOT
 
 The first form drives chip_smoke.py's LiDAR cell
@@ -18,7 +20,15 @@ reports:
      ranges of the frame step itself (core/pipeline.py::integrate_points);
   3. K3's host cost per launch (the wrapper's launcher, no sync) against its
      device time.
-The second form times chip_smoke.py's RGB-D cell (120 frames of the
+The --gs form drives chip_smoke.py's phase-6 scene (tools/bench_gs.py's
+textured box room at 1200x680, configurations/params.json) through
+GeoWrapper(device="cuda"): the two training frames, then frames 2-6 of the
+pan unprofiled (the GS frame, run_gs, synchronized) and frames 7-11 under
+torch.profiler: host ms per GS frame of each gs.* range of the container
+(gs.seed = quad-tree + check_nodes, gs.insert, gs.steps, and inside the
+steps gs.render, gs.backward, gs.adam), device ms per frame of K4, K5 and
+all kernels, and launches and syncs per frame.
+The last form times chip_smoke.py's RGB-D cell (120 frames of the
 box-room orbit at 1200x680, no mesh), each run in a fresh process, with
 the mrhash_tpu_torch of OTHER_ROOT (A) and of this checkout (B) in turns
 A B B A A B B A, and prints each run's median frame time over frames
@@ -35,15 +45,17 @@ import time
 import chip_smoke as S
 
 
-def stage_times(prof, n):
-    """{range: (host ms, device ms)} per scan of the points.* ranges that
-    core/pipeline.py::integrate_points and ops/integrate.py open, from the
-    host-side events of a torch.profiler run over n scans.  A range's device
-    time is that of the kernels launched inside it, nested ranges included."""
+def stage_times(prof, n, prefix="points."):
+    """{range: (host ms, device ms)} per frame of the ranges named
+    prefix* (the points.* ranges that core/pipeline.py::integrate_points and
+    ops/integrate.py open, or the GS container's gs.*), from the host-side
+    events of a torch.profiler run over n frames.  A range's device time is
+    that of the kernels launched inside it from its own thread, nested ranges
+    included."""
     from torch.autograd import DeviceType
     out = {}
     for e in prof.events():
-        if e.name.startswith("points.") and e.device_type == DeviceType.CPU:
+        if e.name.startswith(prefix) and e.device_type == DeviceType.CPU:
             host, dev = out.get(e.name, (0.0, 0.0))
             out[e.name] = (host + e.cpu_time_total / 1e3 / n,
                            dev + _dev_us(e, "device_time_total") / 1e3 / n)
@@ -107,6 +119,74 @@ def rgbd_ab(other_root):
               f"[{S.nvidia_smi_line()}]")
 
 
+def gs_profile(smi):
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    train, _, more = S.gs_frames(np.random.default_rng(0))
+    gw = S.make_gs_wrapper("cuda")
+    gc = gw.gs_container
+    for f in train:
+        S.feed_gs(gw, f)
+    run_gs, gs_ms = gc.run_gs, []
+
+    def timed_run_gs(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_gs(*a, **kw)
+        torch.cuda.synchronize()
+        gs_ms.append((time.perf_counter() - t0) * 1e3)
+    gc.run_gs = timed_run_gs
+    for f in more[:5]:
+        S.feed_gs(gw, f)
+    wall = statistics.median(gs_ms)
+    print(f"GS frame (run_gs), median over frames 2-6: {wall:.3f} ms "
+          f"({gc.model.count} Gaussians) [{smi}]", flush=True)
+    gc.run_gs = run_gs
+
+    n = len(more) - 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for f in more[5:]:
+            S.feed_gs(gw, f)
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+
+    def dev_us(e):
+        return _dev_us(e, "self_device_time_total")
+
+    # kernels, copies and sets only: not the device spans of host ranges
+    # (gs.*, and the optimizer's own Optimizer.step annotation)
+    on_device = [e for e in ka if e.device_type != DeviceType.CPU
+                 and not e.key.startswith(("gs.", "points.", "Optimizer."))]
+    device_ms = sum(dev_us(e) for e in on_device) / 1e3 / n
+    count = {e.key: e.count for e in ka}
+    launches = sum(count.get(k, 0) for k in ("cudaLaunchKernel",
+                                             "cuLaunchKernel",
+                                             "cudaLaunchKernelExC"))
+    syncs = sum(c for k, c in count.items() if "Synchronize" in k)
+    print(f"profiler, frames 7-{6 + n} through compute() [{smi}]: device "
+          f"{device_ms:.3f} ms/frame (RGB-D step included), "
+          f"{launches / n:.1f} kernel launches and {syncs / n:.1f} host "
+          f"syncs per frame")
+    for name in ("blend_forward_kernel", "blend_backward_kernel"):
+        k = [e for e in on_device if name in e.key]
+        if k:
+            print(f"  {name}: {dev_us(k[0]) / n / 1e3:.4f} ms/frame device, "
+                  f"{k[0].count / n:.1f} launches/frame, "
+                  f"{dev_us(k[0]) / k[0].count:.2f} us per launch")
+    print("stages (host ms/frame under the profiler, device ms/frame of "
+          "the kernels launched from the range's thread):")
+    for name, (host, dev) in stage_times(prof, n, "gs.").items():
+        print(f"  {name}: host {host:.3f}, device {dev:.3f}")
+    top = sorted(on_device, key=dev_us, reverse=True)[:10]
+    for e in top:
+        print(f"  {dev_us(e) / n / 1e3:.4f} ms/frame  x{e.count / n:<6.1f} "
+              f"{e.key[:90]}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -124,6 +204,8 @@ def main():
         return rgbd_ab(sys.argv[2])
     smi = S.nvidia_smi_line()
     print(f"card: {smi}", flush=True)
+    if sys.argv[1:] == ["--gs"]:
+        return gs_profile(smi)
     rng = np.random.default_rng(0)
     clouds = [S.lidar_cloud(S.lidar_pose(i), rng) for i in range(S.L_FRAMES)]
 

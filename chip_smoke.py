@@ -6,15 +6,17 @@ card.
 
 Phases (any failure raises: non-zero exit, no result line):
   1. probe   — CUDA present; device, CUDA runtime, nvidia-smi, nvcc;
-  2. build   — compile the kernels K1, K2 and K3 from mrhash_tpu_torch/csrc
-               (one nvcc per source, started together);
+  2. build   — compile the kernels K1-K5 from mrhash_tpu_torch/csrc (one
+               nvcc per source, started together);
   3. compare — each kernel against its plain PyTorch twin on the inputs its
                path gives it (K1, K2: the RGB-D path after 40 frames at
-               1200x680; K3: the LiDAR path after 20 scans at 64x1024), then
-               timed in turns (twin, kernel, library, library, kernel,
-               twin) by CUDA-graph replay and CUDA events; and each
-               whole slice on the card against the same slice on the CPU
-               on a small scene;
+               1200x680; K3: the LiDAR path after 20 scans at 64x1024; K4,
+               K5: the GS training render of frame 1 of phase 6's scene,
+               1200x680, K = 64), then timed in turns (twin, kernel,
+               library, library, kernel, twin) by CUDA-graph replay and
+               CUDA events; and each whole slice (RGB-D, LiDAR, GS) on the
+               card against the same slice on the CPU on a small scene,
+               and the full-size quad tree of phase 6's frame 0;
   4. RGB-D   — GeoWrapper(device="cuda") at replica.cfg's settings, 120
                frames of bench.py's box-room orbit (starvation fires on
                frame 100), with the kernels' launch counts taken over that
@@ -25,7 +27,16 @@ Phases (any failure raises: non-zero exit, no result line):
                ground plane and a 25 m cylinder wall, with K3's launch
                count taken over that run only; then streamAllOut +
                extractMesh, whose vertices must lie on the plane or the
-               wall.
+               wall;
+  6. GS      — GeoWrapper(device="cuda", gs_optimization_param_path=
+               configurations/params.json) on tools/bench_gs.py's protocol
+               at 1200x680: the 6 m box room textured by texture_rgb, 5 cm
+               voxels, two training frames through compute(), 60 refinement
+               iterations on frame 1, PSNR on frame 1 and on a held-out pose
+               before and after GSFinalOpt (before it, at least BENCH_GS's
+               TPU rows less 1 dB), GSSavePointCloud to a temporary
+               directory, then 10 more frames of the pan for the GS frame
+               time; K4's and K5's launch counts over that run only.
 After the runs no jax and no mrhash_tpu module may be loaded.  The last
 lines are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -33,8 +44,9 @@ lines are the kernels' JSON record, the card's name and power limit, and
 Each kernel's bound_ms is the larger of its bytes over 3.35 TB/s and its
 f32 operations over 67 TFLOP/s (an H100 SXM's published peaks), counted
 from this run's inputs: every input read once, every output written once,
-and the pool lanes that only an update needs read and written only where
-this run updated them.
+the pool lanes that only an update needs read and written only where
+this run updated them, and the blend's operations only for the valid
+(tile, k) slots of this render.
 """
 import json
 import os
@@ -60,6 +72,14 @@ L_ROWS, L_COLS = 64, 1024
 L_FRAMES, L_COMPARE_AT, L_STEADY = 40, 20, 10
 L_WALL, L_GROUND = 25.0, -1.5   # cylinder radius, ground height (metres)
 L_TOL = 0.3                     # mesh: vertices within 0.3 m of a surface
+
+# GS: tools/bench_gs.py's protocol (BENCH_GS.json rows for the PSNR bar)
+GS_PARAMS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "configurations", "params.json")
+GS_TRAIN_ITERS = 60
+GS_MORE_FRAMES = 10
+GS_PSNR_REF = dict(train=23.99, holdout=28.27)   # BENCH_GS.json, quality
+GS_K = 64                       # train_max_per_tile
 
 
 def log(*a):
@@ -553,6 +573,226 @@ def compare_small_lidar():
     assert flips + far <= bound_n, (flips, far, bound_n)
 
 # ---------------------------------------------------------------------------
+# GS scene: tools/bench_gs.py's textured box room, in numpy
+# ---------------------------------------------------------------------------
+
+def texture_rgb(pts_w):
+    """tools/bench_gs.py::texture_rgb: a multi-view-consistent RGB from the
+    world position."""
+    import numpy as np
+    x, y, z = pts_w[..., 0], pts_w[..., 1], pts_w[..., 2]
+    r = 0.5 + 0.45 * np.sin(2.1 * x) * np.cos(1.3 * y)
+    g = 0.5 + 0.45 * np.sin(1.7 * y + 0.8) * np.cos(2.3 * z)
+    b = 0.5 + 0.45 * np.sin(1.1 * z + 1.9) * np.cos(1.9 * x)
+    return (np.stack([r, g, b], -1) * 255.0).astype(np.uint8)
+
+
+def gs_frame(th, tx, rng, rows=ROWS, cols=COLS):
+    """tools/bench_gs.py::scene_frame: the pose (rotation th about y,
+    translation tx along x), the 6 m box room's depth with 3 mm noise, and
+    texture_rgb at each pixel's world point."""
+    import numpy as np
+    rot = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0],
+                    [-np.sin(th), 0, np.cos(th)]], np.float32)
+    trans = np.array([tx, 0.0, 0.0], np.float32)
+    fx = 600.0 * cols / 1200.0
+    cx, cy = cols / 2 - 0.5, rows / 2 - 0.5
+    depth = room_depth(rot, trans, rng, rows, cols, fx, fx, cx, cy)
+    r = np.arange(rows, dtype=np.float32)[:, None]
+    c = np.arange(cols, dtype=np.float32)[None, :]
+    pc = np.stack([(c - cx - 0.5) / fx * depth, (r - cy - 0.5) / fx * depth,
+                   depth], -1)
+    return dict(rot=rot, trans=trans,
+                quat=np.array([0.0, np.sin(th / 2), 0.0, np.cos(th / 2)]),
+                depth=depth, rgb=texture_rgb(pc @ rot.T + trans))
+
+
+def gs_frames(rng, rows=ROWS, cols=COLS):
+    """The two training frames, the held-out pose halfway between them
+    (never trained), and GS_MORE_FRAMES more frames of the same pan."""
+    train = [gs_frame(0.15 * i, 0.05 * i, rng, rows, cols) for i in range(2)]
+    holdout = gs_frame(0.075, 0.025, rng, rows, cols)
+    more = [gs_frame(0.15 * i, 0.05 * i, rng, rows, cols)
+            for i in range(2, 2 + GS_MORE_FRAMES)]
+    return train, holdout, more
+
+
+def make_gs_wrapper(device, rows=ROWS, cols=COLS):
+    """The port's GeoWrapper at tools/bench_gs.py's map settings (5 cm
+    voxels, 15 cm truncation, 2^15 blocks, GC off) with the GS path on,
+    configured by configurations/params.json."""
+    from mrhash_tpu_torch.geowrapper import GeoWrapper
+    gw = GeoWrapper(sdf_truncation=0.15, sdf_truncation_scale=0.0,
+                    integration_weight_sample=1, virtual_voxel_size=0.05,
+                    n_frames_invalidate_voxels=0, voxel_extents_scale=1,
+                    gs_optimization_param_path=GS_PARAMS, num_blocks=1 << 15,
+                    profiling=False, device=device)
+    fx = 600.0 * cols / 1200.0
+    gw.setCamera(fx, fx, cols / 2 - 0.5, rows / 2 - 0.5, rows, cols, 0.01,
+                 30.0)
+    return gw
+
+
+def feed_gs(gw, f):
+    gw.setCurrPose(f["trans"], f["quat"])
+    gw.setDepthImage(f["depth"])
+    gw.setRGBImage(f["rgb"])
+    gw.compute()
+
+
+def compare_qtree(rgb):
+    """The quad tree of a full-size frame on the card against the CPU: the
+    integral is exact (PORT_NOTES.md P25), so the leaves are equal."""
+    import torch
+
+    from mrhash_tpu_torch.gs.quadtree import build_qtree
+
+    got = [build_qtree(torch.from_numpy(rgb).to(dev), 0.1, 1, 1 << 15)
+           for dev in ("cpu", "cuda")]
+    (lc, vc, nc, oc), (lg, vg, ng, og) = got
+    log(f"compare quad tree cuda vs cpu ({rgb.shape[0]}x{rgb.shape[1]}): "
+        f"{nc} / {ng} leaves, overflow {oc} / {og}")
+    assert (nc, oc) == (ng, og) and nc > 1000
+    assert torch.equal(lc, lg.cpu()) and torch.equal(vc, vg.cpu())
+
+
+def compare_small_gs(devices=("cpu", "cuda")):
+    """The whole GS slice on the card against the slice on the CPU (where
+    the tests hold it against the JAX reference): GeoWrapper.compute with
+    the GS hook over 3 frames of tests/test_gs_e2e.py's 48x64 textured
+    wall.  The same Gaussian count after every frame; after frame 1, 95 %
+    of each parameter's elements within 1e-5 and all within 2e-3 (the
+    tests' bound against the reference: Adam turns rounding-level
+    gradient differences, here also from the card's atomic scatter-add of
+    the attribute gradients, into steps of up to the learning rate)."""
+    import json as js
+
+    import numpy as np
+
+    from mrhash_tpu_torch.geowrapper import GeoWrapper
+
+    rows, cols = 48, 64
+    depth = np.full((rows, cols), 2.0, np.float32)
+    r = np.arange(rows, dtype=np.float32)[:, None] - (rows / 2 - 0.5) - 0.5
+    c = np.arange(cols, dtype=np.float32)[None, :] - (cols / 2 - 0.5) - 0.5
+    rgb = texture_rgb(np.stack(np.broadcast_arrays(
+        c / 40.0 * 2.0, r / 40.0 * 2.0, depth), -1))
+    got = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "params.json")
+        with open(path, "w") as fh:
+            js.dump(dict(sh_degree=1, position_lr=0.002, feature_lr=0.02,
+                         opacity_lr=0.05, scaling_lr=0.005,
+                         rotation_lr=0.001, lambda_dssim=0.2,
+                         qtree_thresh=0.002, qtree_min_pixel_size=2,
+                         kf_thresh=20, kf_iters=6, non_kf_iters=3,
+                         random_kf_num=1, global_iters=2,
+                         train_max_per_tile=32), fh)
+        for dev in devices:
+            gw = GeoWrapper(sdf_truncation=0.15, sdf_truncation_scale=0.0,
+                            integration_weight_sample=1,
+                            virtual_voxel_size=0.05,
+                            n_frames_invalidate_voxels=0,
+                            voxel_extents_scale=1,
+                            gs_optimization_param_path=path,
+                            num_blocks=4096, max_active_blocks=4096,
+                            max_alloc_per_frame=2048, max_depth=5.0,
+                            profiling=False, device=dev)
+            gw.setCamera(40.0, 40.0, cols / 2 - 0.5, rows / 2 - 0.5, rows,
+                         cols, 0.01, 5.0)
+            counts, p1 = [], None
+            for i in range(3):
+                gw.setCurrPose([0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 1.0])
+                gw.setDepthImage(depth)
+                gw.setRGBImage(rgb)
+                gw.compute()
+                m = gw.gs_container.model
+                counts.append(m.count)
+                if i == 0:
+                    p1 = {k: v.detach().cpu().numpy().copy()
+                          for k, v in m.params().items()}
+            got[dev] = counts, p1
+    (cc, pc), (cg, pg) = (got[d] for d in devices)
+    assert cc == cg and cc[0] > 0, (cc, cg)
+    d = {k: np.abs(pc[k] - pg[k]) for k in pc}
+    q95 = {k: float(np.quantile(v, 0.95)) for k, v in d.items()}
+    err = {k: float(v.max()) for k, v in d.items()}
+    log(f"compare GS slice {devices[1]} vs {devices[0]} (48x64, 3 frames): "
+        f"Gaussians per frame {cc} / {cg}, parameters after frame 1: 95th "
+        f"percentile |diff| {q95}, max {err}")
+    assert max(q95.values()) <= 1e-5 and max(err.values()) <= 2e-3, err
+
+
+def compare_blend_kernels(train, rows=ROWS, cols=COLS):
+    """Drive the GS path over the two training frames, then hold K4 and
+    K5 against their twins on the training render of frame 1 (K = 64):
+    Tfin and Cfin within 1e-6, the mask equal, the attribute gradients
+    within 1e-4 absolute and relative under the cotangents of the summed
+    L1 loss against frame 1."""
+    import torch
+
+    from mrhash_tpu_torch.gs import blend as B
+    from mrhash_tpu_torch.gs import rasterizer as R
+    from mrhash_tpu_torch.gs.container import _cam_dict
+    from mrhash_tpu_torch.ops import camera as C
+
+    gw = make_gs_wrapper("cuda", rows, cols)
+    for f in train:
+        feed_gs(gw, f)
+    gc = gw.gs_container
+    cam = C.with_pose(gw.camera, train[1]["rot"], train[1]["trans"])
+    with torch.no_grad():
+        b = R.bin_and_gather(gc.model.params(), _cam_dict(cam),
+                             gc.p.sh_degree, max_per_tile=GS_K)
+    attr, valid, gx = b["attr"].contiguous(), b["valid"], b["grid_x"]
+    n_gauss, bg = gc.model.count, gc.model.background
+    del gw, gc
+    T, K = valid.shape
+    Tk, Ck, mk = B.blend_forward(attr, valid, gx)
+    Tt, Ct, mt = B.blend_forward_ref(attr, valid, gx)
+    Tl = Tk.clone().requires_grad_()
+    Cl = Ck.clone().requires_grad_()
+    img = R.untile(Tl, Cl, bg, gx, b["grid_y"], rows, cols)
+    gt = torch.from_numpy(train[1]["rgb"]).cuda().to(torch.float32)
+    gT, gC = torch.autograd.grad(
+        (img - gt.permute(2, 0, 1) / 255.0).abs().sum(), [Tl, Cl])
+    gT, gC = gT.contiguous(), gC.contiguous()
+    gk = B.blend_backward(attr, gx, Tk, mk, gT, gC)
+    gt_ = B.blend_backward_ref(attr, gx, Tk, mk, gT, gC)
+    torch.cuda.synchronize()
+    flips = int((mk != mt).sum())
+    e4 = max(float((Tk - Tt).abs().max()), float((Ck - Ct).abs().max()))
+    e5 = float((gk - gt_).abs().max())
+    slots = int(valid.sum())
+    blended = int((mk != 0).sum())
+    log(f"compare K4: {T} tiles x K {K}, {n_gauss} Gaussians, {slots} "
+        f"valid slots, {blended} blended (tile, k, pixel); mask flips "
+        f"{flips}, max |diff| Tfin/Cfin {e4}")
+    log(f"compare K5: max |diff| {e5} (largest |grad| "
+        f"{float(gt_.abs().max())})")
+    assert T == (rows // 16 + (rows % 16 > 0)) * (cols // 16 + (cols % 16
+                                                              > 0)), T
+    assert flips == 0 and e4 <= 1e-6, (flips, e4)
+    torch.testing.assert_close(gk, gt_, atol=1e-4, rtol=1e-4)
+    assert blended > 100000, "K4 blended almost nothing"
+    t4 = time_in_turns(lambda: B._launch_forward(attr, valid, gx),
+                       lambda: B.blend_forward_ref(attr, valid, gx))
+    t5 = time_in_turns(
+        lambda: B._launch_backward(attr, gx, Tk, mk, gT, gC),
+        lambda: B.blend_backward_ref(attr, gx, Tk, mk, gT, gC))
+    # K4: attr (36 B) and valid (1 B) read and the mask (256 B) written
+    # per (tile, k); T and C (16 B) written per pixel; ~30 f32 operations
+    # per valid (tile, k, pixel).  K5: attr and the mask read and the
+    # gradient (36 B) written per (tile, k); Tfin, gT and gC (20 B) read
+    # per pixel; ~70 operations per valid (tile, k, pixel)
+    k4 = kernel_record(t4, e4, T * K * 293 + T * 256 * 16, slots * 256 * 30)
+    k5 = kernel_record(t5, e5, T * K * 328 + T * 256 * 20, slots * 256 * 70)
+    for k in (k4, k5):
+        k.update(tiles=T, K=K, valid_slots=slots)
+    return k4, k5
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the RGB-D path
 # ---------------------------------------------------------------------------
 
@@ -673,6 +913,123 @@ def run_lidar(clouds):
                           peak_gib=peak / 2**30, window=occupied[-1])
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the GS path
+# ---------------------------------------------------------------------------
+
+def run_gs_path(train, holdout, more, device="cuda", rows=ROWS, cols=COLS,
+                train_iters=GS_TRAIN_ITERS):
+    """tools/bench_gs.py's protocol through the port's GeoWrapper; returns
+    (launches, numbers).  The GS frame time is the container's run_gs
+    (seed, insert and the frame's Adam steps), synchronized."""
+    import numpy as np
+    import torch
+
+    from mrhash_tpu_torch.gs import blend as B
+    from mrhash_tpu_torch.gs import losses as GL
+    from mrhash_tpu_torch.gs.container import _cam_dict
+    from mrhash_tpu_torch.ops import camera as C
+    from mrhash_tpu_torch.ops import fused_integrate as FI
+
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    gw = make_gs_wrapper(device, rows, cols)
+    gc = gw.gs_container
+    gs_ms = []
+    run_gs = gc.run_gs
+
+    def timed_run_gs(*a, **kw):
+        sync()
+        t0 = time.perf_counter()
+        run_gs(*a, **kw)
+        sync()
+        gs_ms.append((time.perf_counter() - t0) * 1e3)
+    gc.run_gs = timed_run_gs
+
+    def view(f):
+        cam = C.with_pose(gw.camera, f["rot"], f["trans"])
+        return cam, torch.from_numpy(f["rgb"]).to(device)
+
+    def psnr(f):
+        cam, gt_u8 = view(f)
+        gt = gt_u8.to(torch.float32).permute(2, 0, 1) / 255.0
+        return float(GL.psnr(gc.render_view(cam), gt.clamp(0.0, 1.0)))
+
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    B.launch_count.update(blend_forward=0, blend_backward=0)
+    FI.launch_count = 0
+    for f in train:
+        feed_gs(gw, f)
+    seeded = gc.model.count
+    cam1, gt1 = view(train[1])
+    cd1 = _cam_dict(cam1)
+    gc.train_steps([(cd1, gt1)])          # warm-up, as tools/bench_gs.py
+    sync()
+    t0 = time.perf_counter()
+    gc.train_steps([(cd1, gt1)] * train_iters)
+    sync()
+    iter_ms = (time.perf_counter() - t0) * 1e3 / train_iters
+    psnr0 = dict(train=psnr(train[1]), holdout=psnr(holdout))
+    if not gc.keyframes:
+        gc.keyframes = [(_cam_dict(view(f)[0]), view(f)[1]) for f in train]
+    t0 = time.perf_counter()
+    gw.GSFinalOpt()
+    sync()
+    final_s = time.perf_counter() - t0
+    psnr1 = dict(train=psnr(train[1]), holdout=psnr(holdout))
+    with tempfile.TemporaryDirectory() as tmp:
+        gw.GSSavePointCloud(tmp)
+        gc.model.wait_ply()
+        files = os.listdir(tmp)
+        with open(os.path.join(tmp, files[0]), "rb") as fh:
+            head = fh.read(300)
+    assert len(files) == 1 and (f"element vertex {gc.model.count}".encode()
+                                in head), (files, head[:60])
+
+    n4, n5 = B.launch_count["blend_forward"], B.launch_count["blend_backward"]
+    for f in more:
+        feed_gs(gw, f)
+    sync()
+    per_frame = dict(
+        blend_forward=(B.launch_count["blend_forward"] - n4) / len(more),
+        blend_backward=(B.launch_count["blend_backward"] - n5) / len(more))
+    launches = dict(B.launch_count)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    steady = gs_ms[-len(more):]
+    log(f"gs: {len(train) + len(more)} frames; Gaussians {seeded} after "
+        f"the training frames, {gc.model.count} after all; keyframes "
+        f"{len(gc.keyframes)}; launches {launches}, per frame of the pan "
+        f"{per_frame}; K1 launches {FI.launch_count}")
+    log(f"gs: GS frame (run_gs) over frames 2-{1 + len(more)}: median "
+        f"{statistics.median(steady):.3f} ms, mean "
+        f"{statistics.fmean(steady):.3f} ms; training frames "
+        f"{gs_ms[0]:.1f} / {gs_ms[1]:.1f} ms")
+    log(f"gs: {iter_ms:.3f} ms per Adam iteration ({train_iters} on frame "
+        f"1); GSFinalOpt {final_s:.2f} s")
+    log(f"gs: PSNR train {psnr0['train']:.2f} dB, holdout "
+        f"{psnr0['holdout']:.2f} dB; after GSFinalOpt train "
+        f"{psnr1['train']:.2f} dB, holdout {psnr1['holdout']:.2f} dB "
+        f"(tools/bench_gs.py bar: {GS_PSNR_REF})")
+    log(f"gs: peak device memory {peak / 2**30:.3f} GiB")
+    assert FI.launch_count == len(train) + len(more), FI.launch_count
+    assert per_frame["blend_forward"] >= 1 and per_frame[
+        "blend_backward"] >= 1, per_frame
+    assert all(np.isfinite(v) for v in (*psnr0.values(), *psnr1.values()))
+    if cuda:
+        for k, ref in GS_PSNR_REF.items():
+            assert psnr0[k] >= ref - 1.0, (k, psnr0[k], ref)
+    return launches, dict(median_ms=statistics.median(steady),
+                          mean_ms=statistics.fmean(steady), iter_ms=iter_ms,
+                          psnr=psnr0, psnr_final=psnr1, per_frame=per_frame,
+                          gaussians=gc.model.count, peak_gib=peak / 2**30)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -711,10 +1068,13 @@ def main():
         rot, trans, _ = orbit_pose(i)
         depths.append(room_depth(rot, trans, rng))
     clouds = [lidar_cloud(lidar_pose(i), rng) for i in range(L_FRAMES)]
+    train, holdout, more = gs_frames(np.random.default_rng(0))
 
     # 3. compare
     compare_small_scene()
     compare_small_lidar()
+    compare_small_gs()
+    compare_qtree(train[0]["rgb"])
     k1, k2 = compare_kernels(depths, rgb)
     torch.cuda.empty_cache()
     log(f"compare: K1 {k1['ms']:.4f} ms (twin {k1['plain_ms']:.4f} ms, "
@@ -726,6 +1086,12 @@ def main():
     log(f"compare: K3 {k3['ms']:.4f} ms (twin {k3['plain_ms']:.4f} ms, "
         f"bound {k3['bound_ms']:.4f} ms, {k3['bytes']} B) over "
         f"{k3['window_blocks']} blocks [{smi}]")
+    k4, k5 = compare_blend_kernels(train)
+    torch.cuda.empty_cache()
+    for name, k in (("K4", k4), ("K5", k5)):
+        log(f"compare: {name} {k['ms']:.4f} ms (twin {k['plain_ms']:.4f} ms, "
+            f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}, {k['bytes']} "
+            f"B) over {k['tiles']} tiles x K {k['K']} [{smi}]")
 
     # 4. the RGB-D path
     launches, run = run_slice(depths, rgb)
@@ -738,6 +1104,16 @@ def main():
     log(f"lidar: {lrun['fps']:.2f} FPS, median {lrun['median_ms']:.3f} "
         f"ms/scan, mean {lrun['mean_ms']:.3f} ms/scan, window "
         f"{lrun['window']} blocks, peak {lrun['peak_gib']:.3f} GiB [{smi}]")
+    torch.cuda.empty_cache()
+
+    # 6. the GS path
+    gs_launches, grun = run_gs_path(train, holdout, more)
+    launches.update(gs_launches)
+    log(f"gs: median {grun['median_ms']:.3f} ms per GS frame, "
+        f"{grun['iter_ms']:.3f} ms per Adam iteration, PSNR "
+        f"{grun['psnr']['train']:.2f} / {grun['psnr']['holdout']:.2f} dB, "
+        f"{grun['gaussians']} Gaussians, peak {grun['peak_gib']:.3f} GiB "
+        f"[{smi}]")
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "mrhash_tpu"))
@@ -750,7 +1126,11 @@ def main():
             ("sample_image", "sample_image.cu",
              "mrhash_tpu/ops/pallas_kernels.py:121", k2),
             ("fused_integrate_points_rows", "fused_integrate_points.cu",
-             "mrhash_tpu/ops/fused_integrate.py:539", k3)):
+             "mrhash_tpu/ops/fused_integrate.py:539", k3),
+            ("blend_forward", "blend_tiles.cu",
+             "mrhash_tpu/gs/blend_pallas.py:70", k4),
+            ("blend_backward", "blend_tiles.cu",
+             "mrhash_tpu/gs/blend_pallas.py:110", k5)):
         kernels.append(dict(
             name=name, route="cuda", source="mrhash_tpu_torch/csrc/" + src,
             replaces=replaces, launches=launches[name],

@@ -1,11 +1,13 @@
 """mrhash_tpu_torch: the PyTorch + CUDA port of mrhash_tpu.
 
 The single-resolution RGB-D path (allocation, fused integrate, starvation,
-garbage collection) and the single-resolution projective LiDAR path
-(per-point allocation, the scan's range image, fused integrate), then host
-mesh extraction, run on an NVIDIA card through three hand-written CUDA
-kernels (`ops/fused_integrate.py`, `ops/sample_image.py`,
-`ops/fused_integrate_points.py`).  The JAX package `mrhash_tpu` stays the
+garbage collection), the single-resolution projective LiDAR path
+(per-point allocation, the scan's range image, fused integrate) and online
+3D Gaussian Splatting after each RGB-D frame (`gs/`), then host mesh
+extraction, run on an NVIDIA card through five hand-written CUDA kernels
+(`ops/fused_integrate.py`, `ops/sample_image.py`,
+`ops/fused_integrate_points.py`, and the tile blend's forward and backward
+in `gs/blend.py`).  The JAX package `mrhash_tpu` stays the
 reference; this package imports neither jax nor anything of `mrhash_tpu`.
 Deviations from the reference are listed in PORT_NOTES.md.
 """

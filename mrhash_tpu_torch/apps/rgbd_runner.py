@@ -1,6 +1,7 @@
 """RGB-D dataset runner on the port (mrhash/apps/rgbd_runner.py): YAML
 config -> DepthReader -> per-frame pose/depth/rgb -> compute ->
-streamAllOut + extractMesh + serializeData.
+[GSFinalOpt + GSSavePointCloud with gs=True] -> streamAllOut +
+extractMesh + serializeData.
 
     python -m mrhash_tpu_torch.apps.rgbd_runner configurations/replica.cfg
 """
@@ -17,7 +18,7 @@ from mrhash_tpu_torch.apps.runner_common import (build_geowrapper,
                                                  prepare_results_dir)
 
 
-def main(config_path, end_frame_override=None, skip_outputs=False,
+def main(config_path, gs=False, end_frame_override=None, skip_outputs=False,
          **wrapper_overrides):
     config, cfg = load_config(config_path)
     results_dir, timestamp = prepare_results_dir(config, cfg)
@@ -38,7 +39,9 @@ def main(config_path, end_frame_override=None, skip_outputs=False,
     cam = Camera(rows=sensor["resolution"][1], cols=sensor["resolution"][0],
                  K=K, min_depth=sensor["min_depth"],
                  max_depth=sensor["max_depth"], model=CameraModel.Pinhole)
+    gs_path = cfg.get("gs_optimization_param_path", "") if gs else ""
     gw = build_geowrapper(cfg, sensor["min_depth"], sensor["max_depth"],
+                          gs_optimization_param_path=gs_path,
                           **wrapper_overrides)
     gw.setCamera(cam.fx_, cam.fy_, cam.cx_, cam.cy_, cam.rows_, cam.cols_,
                  cam.min_depth_, cam.max_depth_, cam.model_)
@@ -52,6 +55,9 @@ def main(config_path, end_frame_override=None, skip_outputs=False,
         gw.setRGBImage(rgb_img)
         gw.compute()
 
+    if gs:
+        gw.GSFinalOpt()
+        gw.GSSavePointCloud(str(results_dir))
     if not skip_outputs:
         gw.streamAllOut()
         gw.extractMesh(f"{results_dir}/mesh_{timestamp}.ply")

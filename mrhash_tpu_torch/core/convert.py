@@ -39,10 +39,13 @@ def from_reference(ref_state, device="cpu") -> MapState:
 
 def to_reference_arrays(state: MapState) -> dict:
     """Port MapState -> dict(table=..., pool=..., frame=...) of numpy arrays
-    and ints under the reference's HashTable / VoxelPool field names."""
+    and ints under the reference's HashTable / VoxelPool field names.  The
+    arrays are copies: the port updates its state in place, and `.cpu()` of
+    a CPU tensor would share its memory."""
     t = state.table
-    table = {k: getattr(t, k).cpu().numpy() for k in TABLE_ARRAYS}
+    table = {k: getattr(t, k).cpu().numpy().copy() for k in TABLE_ARRAYS}
     table.update(high_count=t.high_count, low_count=t.low_count,
                  num_buckets=t.num_buckets, num_blocks=t.num_blocks)
-    pool = {f: getattr(state.pool, f).cpu().numpy() for f in VoxelPool.FIELDS}
+    pool = {f: getattr(state.pool, f).cpu().numpy().copy()
+            for f in VoxelPool.FIELDS}
     return dict(table=table, pool=pool, frame=state.frame)

@@ -4,9 +4,11 @@ Same constructor arguments and method names as mrhash_tpu/geowrapper.py
 (the reference's bound class, geowrapper.{h,cpp}), for the
 single-resolution RGB-D and LiDAR paths: setCamera / setCurrPose /
 setDepthImage + setRGBImage or setPointCloud / compute, then streamAllOut /
-extractMesh / serializeData / clearBuffers.  Every frame runs eagerly on
+extractMesh / serializeData / clearBuffers; with a
+gs_optimization_param_path, online 3D Gaussian Splatting after each RGB-D
+frame, then GSFinalOpt / GSSavePointCloud.  Every frame runs eagerly on
 `device` ("cuda" by default).  Out of these slices, and raising instead of
-skipping: 3D Gaussian Splatting, multi-resolution (sdf_var_threshold > 0),
+skipping: multi-resolution (sdf_var_threshold > 0),
 the non-projective LiDAR update (projective_sdf=False) and starvation under
 the spherical model (n_frames_invalidate_voxels > 0 with a spherical
 camera), the viewer thread, and streaming triggered by the heap watermark
@@ -24,6 +26,7 @@ from mrhash_tpu_torch import params as P
 from mrhash_tpu_torch.core import mesh_post, pipeline
 from mrhash_tpu_torch.core.state import MapConfig, make_state
 from mrhash_tpu_torch.core.streaming import ChunkGrid, Streamer
+from mrhash_tpu_torch.gs.container import GaussianContainer
 from mrhash_tpu_torch.ops import camera as C
 from mrhash_tpu_torch.utils import plyio
 from mrhash_tpu_torch.utils.profiler import Profiler
@@ -89,15 +92,16 @@ class GeoWrapper:
                                "PyTorch path)")
         if viewer_active:
             raise NotImplementedError("viewer_active: not ported yet")
-        if gs_optimization_param_path:
-            raise NotImplementedError("3D Gaussian Splatting: not ported yet")
         if sdf_var_threshold > 0.0:
             raise NotImplementedError("multi-resolution (sdf_var_threshold "
                                       "> 0): not ported yet")
         # projective_sdf only steers the LiDAR update; RGB-D ignores it, as
         # in the reference
         self._projective_sdf = bool(projective_sdf)
-        to_alloc = _device_free_bytes(self.device) * P.SDF_BLOCKS_RATIO
+        free = _device_free_bytes(self.device)
+        if gs_optimization_param_path:
+            free = int(free * P.GS_SCALING_RATIO)
+        to_alloc = free * P.SDF_BLOCKS_RATIO
         if num_blocks is None:
             num_blocks = int(to_alloc * P.SDF_BLOCKS_RATIO
                              / (P.VOXEL_NBYTES * P.TOTAL_SDF_BLOCK_SIZE))
@@ -124,6 +128,10 @@ class GeoWrapper:
                                 self.cfg.num_buckets or None, self.device)
         self.streamer = Streamer(self.cfg)
         self.mesh = mesh_post.MeshAccumulator(vertices_merging_threshold)
+        self.gs_container = None
+        if gs_optimization_param_path:
+            self.gs_container = GaussianContainer(gs_optimization_param_path,
+                                                  device=self.device)
         self.camera = C.make_camera(1.0, 1.0, 0.0, 0.0, 1, 1, min_depth,
                                     max_depth, device=self.device)
         self.curr_rot = np.eye(3, dtype=np.float32)
@@ -230,13 +238,16 @@ class GeoWrapper:
                 self.state, stats = pipeline.integrate_points(
                     self.cfg, self.state, cam, self._points.to(self.device))
             else:
+                depth = self._depth_img.to(self.device)
+                rgb = self._rgb_img.to(self.device)
                 self.state, stats = pipeline.integrate_rgbd(
-                    self.cfg, self.state, cam,
-                    self._depth_img.to(self.device),
-                    self._rgb_img.to(self.device))
+                    self.cfg, self.state, cam, depth, rgb)
         self.last_stats = stats
         self._high_free = stats["high_free"]
         self.integration_profiler.write(stats["occupied_blocks"])
+        if self.gs_container is not None and not lidar:
+            # the GS step consumes the device copies of this frame
+            self.gs_container.run_gs(self.cfg, cam, self.state, rgb, depth)
 
     # ------------------------------------------------------------------ meshing
     def extractMesh(self, filename: str):
@@ -265,6 +276,18 @@ class GeoWrapper:
         print(f"GeoWrapper::extractMesh | written "
               f"{self.mesh.vertices.shape[0]} vertices and "
               f"{self.mesh.faces.shape[0]} faces to {filename}")
+
+    # ------------------------------------------------------------------ GS
+    def GSSavePointCloud(self, folder: str):
+        if self.gs_container is None:
+            print("GeoWrapper::GSSavePointCloud | GS container not "
+                  "initialized")
+            return
+        self.gs_container.save_ply(folder, int(self.state.frame))
+
+    def GSFinalOpt(self):
+        if self.gs_container is not None:
+            self.gs_container.optimize_final()
 
     # ------------------------------------------------------------------ persistence
     def streamAllOut(self):

@@ -10,7 +10,8 @@ changed source never loads a stale binary.  Nothing here runs at import.
 Flags: sm_90a (Hopper), -O3, no --use_fast_math, and -fmad=false — the
 kernels truncate projected pixel coordinates to int, and a contracted FMA
 or an approximate division would move voxels that sit on a pixel boundary
-onto the next pixel, away from the plain PyTorch twins.
+onto the next pixel, away from the plain PyTorch twins; and K5 divides by
+the 1 - alpha of K4, which must be bit-identical in both.
 """
 from __future__ import annotations
 
@@ -47,6 +48,10 @@ SIGNATURES = {
     "mrhash_fused_integrate_points_rows": [_vp, _vp, _vp, _vp, _i64,
                                            _f, _f, _f, _f, _f, _f,
                                            _vp, _vp, _vp, _vp, _vp],
+    # attr, valid, n_tiles, K, grid_x, tfin, cfin, mask, stream
+    "mrhash_blend_forward": [_vp, _vp, _i, _i, _i, _vp, _vp, _vp, _vp],
+    # attr, n_tiles, K, grid_x, tfin, mask, gt, gc, gout, stream
+    "mrhash_blend_backward": [_vp, _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp],
 }
 
 
