@@ -5,6 +5,7 @@ of the port.
 
     python3 chip_profile.py
     python3 chip_profile.py --gs
+    python3 chip_profile.py --multires
     python3 chip_profile.py --rgbd-ab OTHER_ROOT
 
 The first form drives chip_smoke.py's LiDAR cell
@@ -28,6 +29,13 @@ torch.profiler: host ms per GS frame of each gs.* range of the container
 (gs.seed = quad-tree + check_nodes, gs.insert, gs.steps, and inside the
 steps gs.render, gs.backward, gs.adam), device ms per frame of K4, K5 and
 all kernels, and launches and syncs per frame.
+The --multires form drives chip_smoke.py's multi-res cells (phase 7:
+the box-room orbit at bench_multires's settings; phase 8: the LiDAR scans
+at bench_lidar(multires=True)'s): the unprofiled frame time, median over
+20 steady frames, then 10 frames under torch.profiler: device ms per frame
+and its share, launches and syncs per frame, the host and device ms of
+each stage range of the frame step (rgbd.* or points.*), and the kernels
+that take the most device time.
 The last form times chip_smoke.py's RGB-D cell (120 frames of the
 box-room orbit at 1200x680, no mesh), each run in a fresh process, with
 the mrhash_tpu_torch of OTHER_ROOT (A) and of this checkout (B) in turns
@@ -47,11 +55,11 @@ import chip_smoke as S
 
 def stage_times(prof, n, prefix="points."):
     """{range: (host ms, device ms)} per frame of the ranges named
-    prefix* (the points.* ranges that core/pipeline.py::integrate_points and
-    ops/integrate.py open, or the GS container's gs.*), from the host-side
-    events of a torch.profiler run over n frames.  A range's device time is
-    that of the kernels launched inside it from its own thread, nested ranges
-    included."""
+    prefix* (the points.* or rgbd.* ranges that core/pipeline.py's frame
+    steps and ops/integrate.py open, or the GS container's gs.*), from the
+    host-side events of a torch.profiler run over n frames.  A range's
+    device time is that of the kernels launched inside it from its own
+    thread, nested ranges included."""
     from torch.autograd import DeviceType
     out = {}
     for e in prof.events():
@@ -187,6 +195,67 @@ def gs_profile(smi):
               f"{e.key[:90]}")
 
 
+def multires_profile(smi):
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # chip_smoke.py's scenes, drawn in its order from the same seed
+    rng = np.random.default_rng(0)
+    rgb = rng.integers(0, 255, (S.ROWS, S.COLS, 3)).astype(np.uint8)
+    depths = [S.room_depth(*S.orbit_pose(i)[:2], rng) for i in range(S.ORBIT)]
+    clouds = [S.lidar_cloud(S.lidar_pose(i), rng) for i in range(S.L_FRAMES)]
+    cells = (
+        ("multi-res RGB-D", "rgbd.", S.ORBIT,
+         lambda: S.make_wrapper("cuda", multires=True),
+         lambda gw, i: S.feed(gw, i, depths, rgb)),
+        ("multi-res LiDAR", "points.", S.L_STEADY,
+         lambda: S.make_lidar_wrapper("cuda", clouds[0], multires=True),
+         lambda gw, i: S.feed_lidar(gw, i, clouds)))
+    n_steady, n = 20, 10
+    for name, prefix, warm, make, step in cells:
+        gw = make()
+        ms = []
+        for i in range(warm + n_steady):
+            t0 = time.perf_counter()
+            step(gw, i)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        wall = statistics.median(ms[warm:])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(warm + n_steady, warm + n_steady + n):
+                step(gw, i)
+            torch.cuda.synchronize()
+        ka = prof.key_averages()
+
+        def dev_us(e):
+            return _dev_us(e, "self_device_time_total")
+
+        on_device = [e for e in ka if e.device_type != DeviceType.CPU
+                     and not e.key.startswith(prefix)]
+        device_ms = sum(dev_us(e) for e in on_device) / 1e3 / n
+        count = {e.key: e.count for e in ka}
+        launches = sum(count.get(k, 0) for k in ("cudaLaunchKernel",
+                                                 "cuLaunchKernel",
+                                                 "cudaLaunchKernelExC"))
+        syncs = sum(c for k, c in count.items() if "Synchronize" in k)
+        print(f"{name}: frame median {wall:.3f} ms over {n_steady} frames; "
+              f"profiler, {n} frames: device {device_ms:.3f} ms/frame, busy "
+              f"{device_ms / wall:.4f} of the unprofiled frame, "
+              f"{launches / n:.1f} launches and {syncs / n:.1f} syncs per "
+              f"frame; {S.res1_blocks(gw)} res-1 blocks [{smi}]")
+        print("  stages (host ms/frame under the profiler, device ms/frame):")
+        for rname, (host, dev) in stage_times(prof, n, prefix).items():
+            print(f"    {rname}: host {host:.3f}, device {dev:.3f}")
+        for e in sorted(on_device, key=dev_us, reverse=True)[:8]:
+            print(f"    {dev_us(e) / n / 1e3:.4f} ms/frame  "
+                  f"x{e.count / n:<6.1f} {e.key[:90]}")
+        del gw
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -206,6 +275,8 @@ def main():
     print(f"card: {smi}", flush=True)
     if sys.argv[1:] == ["--gs"]:
         return gs_profile(smi)
+    if sys.argv[1:] == ["--multires"]:
+        return multires_profile(smi)
     rng = np.random.default_rng(0)
     clouds = [S.lidar_cloud(S.lidar_pose(i), rng) for i in range(S.L_FRAMES)]
 
@@ -277,15 +348,17 @@ def main():
     cfg, st = gw.cfg, gw.state
     cam = C.with_pose(gw.camera, gw.curr_rot, gw.curr_trans)
     points = torch.from_numpy(clouds[S.L_STEADY + n - 1]).to("cuda")
-    _, bpos, bptr, _ = I.compact_active(cfg, st.table)
-    img, pix, r_vox, prow, consts = I.points_window(cfg, cam, points, bpos,
-                                                    bptr)
-    FIP._launch(st.pool, img, pix, r_vox, prow, consts)
+    _, bpos, bptr, bres = I.compact_active(cfg, st.table)
+    img, pix, r_vox, ptr, res, consts = I.points_window(cfg, cam, points,
+                                                        bpos, bptr, bres)
+    entries = torch.arange(bpos.shape[0], device="cuda")
+    flags = torch.empty((bpos.shape[0], FIP.N_FLAGS), device="cuda")
+    FIP._launch(st.pool, img, pix, r_vox, ptr, entries, 0, consts, flags)
     torch.cuda.synchronize()
     reps = 200
     t0 = time.perf_counter()
     for _ in range(reps):
-        FIP._launch(st.pool, img, pix, r_vox, prow, consts)
+        FIP._launch(st.pool, img, pix, r_vox, ptr, entries, 0, consts, flags)
     host_us = (time.perf_counter() - t0) / reps * 1e6
     torch.cuda.synchronize()
     print(f"K3 host cost per launch {host_us:.2f} us over {bpos.shape[0]} "

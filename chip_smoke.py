@@ -10,13 +10,16 @@ Phases (any failure raises: non-zero exit, no result line):
                nvcc per source, started together);
   3. compare — each kernel against its plain PyTorch twin on the inputs its
                path gives it (K1, K2: the RGB-D path after 40 frames at
-               1200x680; K3: the LiDAR path after 20 scans at 64x1024; K4,
+               1200x680; K1's res-1 path: the multi-res RGB-D path after 40
+               frames; K3 and its res-1 path: the LiDAR path, one
+               resolution and multi-res, after 20 scans at 64x1024; K4,
                K5: the GS training render of frame 1 of phase 6's scene,
                1200x680, K = 64), then timed in turns (twin, kernel,
                library, library, kernel, twin) by CUDA-graph replay and
-               CUDA events; and each whole slice (RGB-D, LiDAR, GS) on the
-               card against the same slice on the CPU on a small scene,
-               and the full-size quad tree of phase 6's frame 0;
+               CUDA events; and each whole slice (RGB-D at one resolution
+               and multi-res, LiDAR, GS) on the card against the same
+               slice on the CPU on a small scene, and the full-size quad
+               tree of phase 6's frame 0;
   4. RGB-D   — GeoWrapper(device="cuda") at replica.cfg's settings, 120
                frames of bench.py's box-room orbit (starvation fires on
                frame 100), with the kernels' launch counts taken over that
@@ -36,9 +39,18 @@ Phases (any failure raises: non-zero exit, no result line):
                before and after GSFinalOpt (before it, at least BENCH_GS's
                TPU rows less 1 dB), GSSavePointCloud to a temporary
                directory, then 10 more frames of the pan for the GS frame
-               time; K4's and K5's launch counts over that run only.
+               time; K4's and K5's launch counts over that run only;
+  7. multi-res RGB-D — phase 4 at tools/bench_extra.py::bench_multires's
+               settings (sdf_var_threshold 1.0, 2^13 allocations per
+               frame): frames/s, res-0 and res-1 block counts, peak memory,
+               K1's res-0 and res-1 launches and K2's over that run; then
+               the mesh on the walls;
+  8. multi-res LiDAR — phase 5 at bench_lidar(multires=True)'s settings
+               (sdf_var_threshold 1.0, 512 coarsenings per scan): scans/s,
+               res-1 blocks, K3's res-0 and res-1 launches; then the mesh.
 After the runs no jax and no mrhash_tpu module may be loaded.  The last
-lines are the kernels' JSON record, the card's name and power limit, and
+lines are the kernels' JSON record (K1 and K3 with res1_* figures beside
+their res-0 ones), the card's name and power limit, and
 {"ok": true, "device": {...}}.
 
 Each kernel's bound_ms is the larger of its bytes over 3.35 TB/s and its
@@ -64,6 +76,7 @@ N_FRAMES = 120
 HALF = 3.0                      # box room half side, metres
 TURNS, REPEAT = 20, 10          # per version: 20 turns of 10 calls
 TOL = dict(sdf=2e-5, sumsq=5e-4)
+MR_THRESHOLD = 1.0              # multi-res: tools/bench_extra.py's threshold
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
 F32_FLOPS = 67e12               # H100 SXM, float32 outside the tensor cores
 
@@ -130,16 +143,20 @@ def room_depth(rot, trans, rng, rows=ROWS, cols=COLS, fx=FX, fy=FY, cx=CX,
     return np.clip(depth, 0.0, 29.0).astype(np.float32)
 
 
-def make_wrapper(device):
+def make_wrapper(device, multires=False):
     """The port's GeoWrapper at configurations/replica.cfg's settings, with
-    bench.py's capacities."""
+    bench.py's capacities; multires: tools/bench_extra.py::bench_multires's
+    (sdf_var_threshold 1.0, 2^13 allocations per frame)."""
     from mrhash_tpu_torch.geowrapper import GeoWrapper
     gw = GeoWrapper(sdf_truncation=0.07, sdf_truncation_scale=0.0,
                     integration_weight_sample=1, virtual_voxel_size=0.01,
                     n_frames_invalidate_voxels=100, voxel_extents_scale=1,
                     marching_cubes_threshold=1.5, min_weight_threshold=5,
-                    min_depth=0.01, max_depth=30.0, num_blocks=1 << 19,
-                    num_buckets=1 << 15, max_active_blocks=1 << 17,
+                    min_depth=0.01, max_depth=30.0,
+                    sdf_var_threshold=MR_THRESHOLD if multires else 0.0,
+                    num_blocks=1 << 19, num_buckets=1 << 15,
+                    max_active_blocks=1 << 17,
+                    max_alloc_per_frame=1 << (13 if multires else 14),
                     profiling=False, device=device)
     gw.setCamera(FX, FY, CX, CY, ROWS, COLS, 0.01, 30.0)
     return gw
@@ -217,12 +234,61 @@ def kernel_record(t, err, nbytes, flops):
                 bytes=nbytes)
 
 
+def window_error(pools, bptr, bres, fields=("sdf", "sumsq", "weight",
+                                             "rgbp")):
+    """Largest |difference| per field between two pools over the window's
+    voxels (each entry's own 512 or 64)."""
+    from mrhash_tpu_torch.core.state import window_voxels
+    vidx, valid = window_voxels(bptr, bres)
+    vidx = vidx[valid]
+    return {f: float((getattr(pools[0], f).view(-1)[vidx].double()
+                      - getattr(pools[1], f).view(-1)[vidx].double())
+                     .abs().max()) for f in fields}
+
+
+def window_count(pool, src, bptr, bres, field="weight"):
+    """(updated, weighted): window voxels whose weight `pool` raised over
+    `src`, and window voxels with weight in `pool`."""
+    from mrhash_tpu_torch.core.state import window_voxels
+    vidx, valid = window_voxels(bptr, bres)
+    vidx = vidx[valid]
+    w = getattr(pool, field).view(-1)[vidx]
+    return (int((w > getattr(src, field).view(-1)[vidx]).sum()),
+            int((w > 0).sum()))
+
+
+def clone_pools(src, n=2):
+    from mrhash_tpu_torch.core.state import VoxelPool
+    return [VoxelPool(**{f: getattr(src, f).clone() for f in
+                         VoxelPool.FIELDS}) for _ in range(n)]
+
+
+def rgbd_window(gw, depths, i):
+    """Allocate frame i of the orbit on the wrapper's map and return its
+    camera, depth and window (slots, bpos, bptr, bres)."""
+    import torch
+
+    from mrhash_tpu_torch.ops import camera as C
+    from mrhash_tpu_torch.ops import integrate as I
+    cfg = gw.cfg
+    rot, trans, _ = orbit_pose(i)
+    cam = C.with_pose(gw.camera, rot, trans)
+    depth = torch.from_numpy(depths[i % ORBIT]).to("cuda")
+    pc_depth = C.get_depth(cam, C.compute_cloud(cam, depth))
+    keys, valid = I.alloc_candidates_depth(
+        cfg, cam, pc_depth, cfg.dda_steps(cfg.max_integration_distance),
+        frame=gw.state.frame)
+    I.alloc_blocks(cfg, gw.state.table, keys, valid, gw.state.frame)
+    return cam, pc_depth.contiguous(), I.compact_active(cfg, gw.state.table,
+                                                        cam)
+
+
 def compare_kernels(depths, rgb):
     """Drive the slice 40 frames, then hold K1 and K2 against their twins
     on the window, frame and z-buffer of frame 41."""
     import torch
 
-    from mrhash_tpu_torch.core.state import VoxelPool, pack_rgb
+    from mrhash_tpu_torch.core.state import pack_rgb
     from mrhash_tpu_torch.ops import camera as C
     from mrhash_tpu_torch.ops import coords as X
     from mrhash_tpu_torch.ops import fused_integrate as FI
@@ -234,39 +300,25 @@ def compare_kernels(depths, rgb):
     for i in range(ORBIT):
         feed(gw, i, depths, rgb)
     cfg = gw.cfg
-    rot, trans, _ = orbit_pose(ORBIT)
-    cam = C.with_pose(gw.camera, rot, trans)
-    depth = torch.from_numpy(depths[0]).to(dev)
-    pc_depth = C.get_depth(cam, C.compute_cloud(cam, depth))
-    keys, valid = I.alloc_candidates_depth(
-        cfg, cam, pc_depth, cfg.dda_steps(cfg.max_integration_distance),
-        frame=gw.state.frame)
-    I.alloc_blocks(cfg, gw.state.table, keys, valid, gw.state.frame)
-    _, bpos, bptr, _ = I.compact_active(cfg, gw.state.table, cam)
+    cam, pc_depth, (_, bpos, bptr, bres) = rgbd_window(gw, depths, ORBIT)
     A = bpos.shape[0]
-    prow = I._block_rows(bptr).contiguous()
+    assert int(bres.sum()) == 0
     rgbp = pack_rgb(torch.from_numpy(rgb).to(dev)).contiguous()
     cam_vec = FI.make_cam_vec(cam, cfg.virtual_voxel_size, cfg.sdf_truncation,
                               cfg.sdf_truncation_scale,
                               cfg.max_integration_distance,
                               cfg.integration_weight_sample,
                               cfg.integration_weight_max)
-    pc_depth = pc_depth.contiguous()
     src = gw.state.pool
-    pools = [VoxelPool(**{f: getattr(src, f).clone() for f in
-                          VoxelPool.FIELDS}) for _ in range(2)]
+    pools = clone_pools(src)
     del gw
     fk = FI.fused_integrate_rows(pools[0], pc_depth, rgbp, cam_vec, bpos,
-                                 prow)
+                                 bptr, bres)
     ft = FI.fused_integrate_rows_ref(pools[1], pc_depth, rgbp, cam_vec, bpos,
-                                     prow)
+                                     bptr, bres)
     torch.cuda.synchronize()
-    err = {}
-    for f in VoxelPool.FIELDS:
-        a = getattr(pools[0], f)[prow]
-        b = getattr(pools[1], f)[prow]
-        err[f] = float((a.double() - b.double()).abs().max())
-    updated = int((pools[0].weight[prow] > src.weight[prow]).sum())
+    err = window_error(pools, bptr, bres)
+    updated, _ = window_count(pools[0], src, bptr, bres)
     log(f"compare K1: window {A} blocks, {updated} voxels updated, "
         f"max |diff| {err}")
     assert err["weight"] == 0 and err["rgbp"] == 0, err
@@ -274,28 +326,31 @@ def compare_kernels(depths, rgb):
     assert torch.equal(fk[:, :3], ft[:, :3]), "K1 GC flags differ"
     torch.testing.assert_close(fk[:, 3], ft[:, 3], rtol=1e-4, atol=1e-6)
     assert updated > 100000, "K1 integrated almost nothing"
+    entries = torch.arange(A, device=dev)
+    flags = torch.empty((A, 4), device=dev)
     t = time_in_turns(
-        lambda: FI._launch(pools[0], pc_depth, rgbp, cam_vec, bpos, prow),
+        lambda: FI._launch(pools[0], pc_depth, rgbp, cam_vec, bpos, bptr,
+                           entries, 0, flags),
         lambda: FI.fused_integrate_rows_ref(pools[1], pc_depth, rgbp,
-                                            cam_vec, bpos, prow))
+                                            cam_vec, bpos, bptr, bres))
     # sdf, sumsq and weight (12 B) read per voxel; rgbp (4 B) read and
-    # 16 B written per updated voxel; the frame (depth + rgb), bpos, prow
-    # and the cam vector read once; flags f32[A,4] written.  ~60 f32
-    # operations per voxel (projection, fuse, colour blend, Welford)
-    nbytes = (A * 512 * 12 + updated * 20 + ROWS * COLS * 8 + A * (12 + 8)
-              + 128 + A * 16)
+    # 16 B written per updated voxel; the frame (depth + rgb), bpos, ptr,
+    # the entry list and the cam vector read once; flags f32[A,4] written.
+    # ~60 f32 operations per voxel (projection, fuse, colour blend, Welford)
+    nbytes = (A * 512 * 12 + updated * 20 + ROWS * COLS * 8
+              + A * (12 + 4 + 8) + 128 + A * 16)
     k1 = kernel_record(t, max(err.values()), nbytes, A * 512 * 60)
     k1["window_blocks"] = A
     del pools, src
 
     # K2 at the starvation readback's shapes: the frame-41 window's voxels
     # and their z-buffer (ops/integrate.py::starve_mask)
-    pf = X.virtual_voxel_pos_to_world(cfg.virtual_voxel_size,
-                                      I._block_voxel_grid(bpos))
-    pcam = C.world_to_cam(cam, pf)
+    pi, valid = I._block_voxel_grid(bpos, bres)
+    pcam = C.world_to_cam(cam, X.virtual_voxel_pos_to_world(
+        cfg.virtual_voxel_size, pi))
     row, col, ok = C.project_point(cam, pcam)
     z = C.get_depth(cam, pcam)
-    ok = (ok & (z >= cam.min_depth)).contiguous()
+    ok = (ok & valid & (z >= cam.min_depth)).contiguous()
     HW = ROWS * COLS
     pix = torch.where(ok, row.long() * COLS + col, HW).reshape(-1)
     zbuf = torch.full((HW + 1,), I.FAR, dtype=torch.float32, device=dev)
@@ -332,11 +387,83 @@ def compare_kernels(depths, rgb):
     return k1, k2
 
 
-def compare_small_scene():
+def compare_k1_res1(depths, rgb):
+    """Drive the multi-res RGB-D path 40 frames, then hold K1 against its
+    twin on the mixed window of frame 41 (both kernels), and time K1's
+    res-1 path over the window's res-1 entries against the twin over the
+    same entries."""
+    import torch
+
+    from mrhash_tpu_torch.core.state import pack_rgb
+    from mrhash_tpu_torch.ops import fused_integrate as FI
+
+    dev = torch.device("cuda")
+    gw = make_wrapper("cuda", multires=True)
+    for i in range(ORBIT):
+        feed(gw, i, depths, rgb)
+    cfg = gw.cfg
+    cam, pc_depth, (_, bpos, bptr, bres) = rgbd_window(gw, depths, ORBIT)
+    A, n1 = bpos.shape[0], int(bres.sum())
+    rgbp = pack_rgb(torch.from_numpy(rgb).to(dev)).contiguous()
+    cam_vec = FI.make_cam_vec(cam, cfg.virtual_voxel_size, cfg.sdf_truncation,
+                              cfg.sdf_truncation_scale,
+                              cfg.max_integration_distance,
+                              cfg.integration_weight_sample,
+                              cfg.integration_weight_max)
+    src = gw.state.pool
+    pools = clone_pools(src)
+    del gw
+    fk = FI.fused_integrate_rows(pools[0], pc_depth, rgbp, cam_vec, bpos,
+                                 bptr, bres)
+    ft = FI.fused_integrate_rows_ref(pools[1], pc_depth, rgbp, cam_vec, bpos,
+                                     bptr, bres)
+    torch.cuda.synchronize()
+    err = window_error(pools, bptr, bres)
+    e1 = torch.nonzero(bres == 1).flatten()
+    sub = tuple(t[e1].contiguous() for t in (bpos, bptr, bres))
+    updated, _ = window_count(pools[0], src, bptr, bres)
+    upd1, _ = window_count(pools[0], src, *sub[1:])
+    log(f"compare K1 multi-res: window {A} blocks, {n1} at res 1; {updated} "
+        f"voxels updated, {upd1} of them at res 1; max |diff| {err}")
+    assert err["weight"] == 0 and err["rgbp"] == 0, err
+    assert err["sdf"] <= TOL["sdf"] and err["sumsq"] <= TOL["sumsq"], err
+    assert torch.equal(fk[:, :3], ft[:, :3]), "K1 flags differ"
+    torch.testing.assert_close(fk[:, 3], ft[:, 3], rtol=1e-4, atol=1e-6)
+    assert n1 > 1000 and upd1 > 10000, "the window barely coarsened"
+    flags = torch.empty((A, 4), device=dev)
+    t = time_in_turns(
+        lambda: FI._launch(pools[0], pc_depth, rgbp, cam_vec, bpos, bptr, e1,
+                           1, flags),
+        lambda: FI.fused_integrate_rows_ref(pools[1], pc_depth, rgbp,
+                                            cam_vec, *sub))
+    # as K1 at res 0, over the res-1 entries' 64-voxel windows
+    nbytes = (n1 * 64 * 12 + upd1 * 20 + ROWS * COLS * 8
+              + n1 * (12 + 4 + 8) + 128 + n1 * 16)
+    rec = kernel_record(t, max(err.values()), nbytes, n1 * 64 * 60)
+    rec.update(window_blocks=A, res1_blocks=n1)
+    return rec
+
+
+def host_map(st, cfg):
+    """The map's blocks in the host layout (a res-1 block's window at lanes
+    [0, 64)), sorted by key: (pos, res, {field: [S,512]})."""
+    import numpy as np
+
+    from mrhash_tpu_torch.core.streaming import Streamer
+    _, pos, res, sdf, ssq, w, rgb = Streamer(cfg)._occupied_to_host(st)
+    order = np.lexsort(pos.T)
+    return pos[order], res[order], {
+        f: a[order] for f, a in
+        (("sdf", sdf), ("sumsq", ssq), ("weight", w), ("rgbp", rgb))}
+
+
+def compare_small_scene(multires=False):
     """The whole slice on the card against the slice on the CPU (where the
     tests hold it against the JAX reference): 4 frames of a 64x256 scene
-    with starvation + GC; same key set, weight and rgbp exact, sdf within
-    2e-5, sumsq within 5e-4."""
+    with starvation + GC (multires: coarsening from frame 1 on, the
+    threshold of tests/test_torch_multires.py); same key set and
+    resolutions, weight and rgbp exact, sdf within 2e-5, sumsq within
+    5e-4."""
     import numpy as np
     import torch
 
@@ -349,7 +476,7 @@ def compare_small_scene():
                     max_integration_distance=5.0,
                     n_frames_invalidate_voxels=2, num_blocks=1 << 11,
                     max_active_blocks=1 << 10, max_alloc_per_frame=1 << 10,
-                    alloc_tile=4)
+                    alloc_tile=4, sdf_var_threshold=10.0 if multires else 0.0)
     rng = np.random.default_rng(0)
     r = np.arange(rows, dtype=np.float32)[:, None]
     c = np.arange(cols, dtype=np.float32)[None, :]
@@ -368,15 +495,10 @@ def compare_small_scene():
             st, _ = pipeline.integrate_rgbd(
                 cfg, st, cam, torch.from_numpy(d).to(dev),
                 torch.from_numpy(rgb).to(dev))
-        occ = (st.table.ptr != -2).cpu().numpy()
-        pos = st.table.pos.cpu().numpy()[occ]
-        rows_ = st.table.ptr.cpu().numpy()[occ] // 512
-        order = np.lexsort(pos.T)
-        maps[dev] = (pos[order], {f: getattr(st.pool, f).cpu().numpy()
-                                  [rows_[order]] for f in
-                                  ("sdf", "sumsq", "weight", "rgbp")})
-    (pc, mc), (pg, mg) = maps["cpu"], maps["cuda"]
+        maps[dev] = host_map(st, cfg)
+    (pc, rc, mc), (pg, rg, mg) = maps["cpu"], maps["cuda"]
     assert np.array_equal(pc, pg), "block key sets differ"
+    assert np.array_equal(rc, rg), "block resolutions differ"
     assert np.array_equal(mc["weight"], mg["weight"])
     upd = mc["weight"] > 0
     assert int(upd.sum()) > 10000
@@ -384,7 +506,10 @@ def compare_small_scene():
     err = {f: float(np.abs(mc[f][upd] - mg[f][upd]).max())
            for f in ("sdf", "sumsq")}
     assert all(err[f] <= TOL[f] for f in err), err
-    log(f"compare slice cuda vs cpu (64x256, 4 frames): {len(pc)} blocks, "
+    n1 = int(rc.sum())
+    assert (n1 > 100) == multires, n1
+    log(f"compare {'multi-res ' if multires else ''}slice cuda vs cpu "
+        f"(64x256, 4 frames): {len(pc)} blocks, {n1} at res 1, "
         f"max |diff| {err}")
 
 
@@ -428,11 +553,15 @@ def lidar_pose(i):
     return np.array([0.5 * i, 0.0, 0.0], np.float32)
 
 
-def make_lidar_wrapper(device, cloud0, num_blocks=1 << 18):
+def make_lidar_wrapper(device, cloud0, multires=False):
     """The port's GeoWrapper at configurations/newer_college.cfg's settings
     with tools/bench_extra.py's LiDAR capacities (2^18 blocks, 2^16
-    buckets, window cap 2^17, 2^13 allocations per scan); the spherical
-    intrinsics are fit to the first cloud, as the ply runner does."""
+    buckets, window cap 2^17, 2^13 allocations per scan; multires:
+    bench_lidar(multires=True)'s sdf_var_threshold 1.0 and 512 coarsenings
+    per scan); the spherical intrinsics are fit to the first cloud, as the
+    ply runner does."""
+    import dataclasses
+
     from mrhash_tpu_torch.apps.utils.camera import (
         CameraModel, calculate_spherical_intrinsics)
     from mrhash_tpu_torch.geowrapper import GeoWrapper
@@ -440,10 +569,13 @@ def make_lidar_wrapper(device, cloud0, num_blocks=1 << 18):
                     integration_weight_sample=1, virtual_voxel_size=0.20,
                     n_frames_invalidate_voxels=0, voxel_extents_scale=1,
                     marching_cubes_threshold=1.5, min_weight_threshold=5,
-                    min_depth=0.2, max_depth=100.0, num_blocks=num_blocks,
-                    num_buckets=1 << 16, max_active_blocks=1 << 17,
-                    max_alloc_per_frame=1 << 13, profiling=False,
-                    device=device)
+                    min_depth=0.2, max_depth=100.0,
+                    sdf_var_threshold=MR_THRESHOLD if multires else 0.0,
+                    num_blocks=1 << 18, num_buckets=1 << 16,
+                    max_active_blocks=1 << 17, max_alloc_per_frame=1 << 13,
+                    profiling=False, device=device)
+    if multires:
+        gw.cfg = dataclasses.replace(gw.cfg, max_coarsen_per_frame=1 << 9)
     K, _, _, _ = calculate_spherical_intrinsics(cloud0[
         (cloud0 != 0).any(axis=1)], L_ROWS, L_COLS)
     gw.setCamera(K[0, 0], K[1, 1], K[0, 2], K[1, 2], L_ROWS, L_COLS, 0.2,
@@ -457,19 +589,20 @@ def feed_lidar(gw, i, clouds):
     gw.compute()
 
 
-def compare_lidar_kernel(clouds):
+def compare_lidar_kernel(clouds, multires=False):
     """Drive the LiDAR slice L_COMPARE_AT scans, then hold K3 against its
     twin on the next scan's window, range image and projection: sdf,
-    sumsq, weight and the GC flags must be equal."""
+    sumsq, weight and the flags but the sumsq sum must be equal.  Times the
+    res-0 path over the window's res-0 entries, or with multires the res-1
+    path over its res-1 entries, against the twin over the same entries."""
     import torch
 
-    from mrhash_tpu_torch.core.state import VoxelPool
     from mrhash_tpu_torch.ops import camera as C
     from mrhash_tpu_torch.ops import fused_integrate_points as FIP
     from mrhash_tpu_torch.ops import integrate as I
 
     dev = torch.device("cuda")
-    gw = make_lidar_wrapper("cuda", clouds[0])
+    gw = make_lidar_wrapper("cuda", clouds[0], multires)
     for i in range(L_COMPARE_AT):
         feed_lidar(gw, i, clouds)
     cfg = gw.cfg
@@ -478,45 +611,50 @@ def compare_lidar_kernel(clouds):
     keys, valid = I.alloc_candidates_points(
         cfg, cam, points, cfg.dda_steps(cfg.max_integration_distance))
     I.alloc_blocks(cfg, gw.state.table, keys, valid, gw.state.frame)
-    _, bpos, bptr, _ = I.compact_active(cfg, gw.state.table)
-    img, pix, r_vox, prow, consts = I.points_window(cfg, cam, points, bpos,
-                                                    bptr)
+    _, bpos, bptr, bres = I.compact_active(cfg, gw.state.table)
+    img, pix, r_vox, ptr, res, consts = I.points_window(cfg, cam, points,
+                                                        bpos, bptr, bres)
     src = gw.state.pool
-    pools = [VoxelPool(**{f: getattr(src, f).clone() for f in
-                          VoxelPool.FIELDS}) for _ in range(2)]
+    pools = clone_pools(src)
     del gw
-    fk = FIP.fused_integrate_points_rows(pools[0], img, pix, r_vox, prow,
+    fk = FIP.fused_integrate_points_rows(pools[0], img, pix, r_vox, ptr, res,
                                          consts)
-    ft = FIP.fused_integrate_points_rows_ref(pools[1], img, pix, r_vox,
-                                             prow, consts)
+    ft = FIP.fused_integrate_points_rows_ref(pools[1], img, pix, r_vox, ptr,
+                                             res, consts)
     torch.cuda.synchronize()
-    rows = prow.long()
-    err = {f: float((getattr(pools[0], f)[rows].double()
-                     - getattr(pools[1], f)[rows].double()).abs().max())
-           for f in ("sdf", "sumsq", "weight")}
-    A = prow.shape[0]
-    updated = int((pools[0].weight[rows] > src.weight[rows]).sum())
-    in_image = int((pix >= 0).sum())
-    log(f"compare K3: window {A} blocks, {in_image} in-image lanes, "
-        f"{updated} voxels updated, max |diff| {err}")
+    err = window_error(pools, ptr, res, ("sdf", "sumsq", "weight"))
+    A, n1 = ptr.shape[0], int(res.sum())
+    kind = 1 if multires else 0
+    e = torch.nonzero(res == kind).flatten()
+    sub = tuple(t[e].contiguous() for t in (pix, r_vox, ptr, res))
+    updated, _ = window_count(pools[0], src, ptr, res)
+    upd_k, wgt_k = window_count(pools[0], src, *sub[2:])
+    log(f"compare K3{' multi-res' if multires else ''}: window {A} blocks, "
+        f"{n1} at res 1, {int((pix >= 0).sum())} in-image lanes, {updated} "
+        f"voxels updated, {upd_k} of them at res {kind}; max |diff| {err}")
     assert all(v == 0 for v in err.values()), err
-    assert torch.equal(fk, ft), "K3 GC flags differ"
-    assert updated > 50000, "K3 integrated almost nothing"
+    assert torch.equal(fk[:, :3], ft[:, :3]), "K3 flags differ"
+    torch.testing.assert_close(fk[:, 3], ft[:, 3], rtol=1e-4, atol=1e-6)
+    assert upd_k > (2000 if multires else 50000), "K3 integrated too little"
     # the twin's constants as a device tensor, so that its graph holds no
     # host-to-device copy
     c_dev = torch.tensor(consts, dtype=torch.float32, device=dev)
+    flags = torch.empty((A, FIP.N_FLAGS), device=dev)
     t = time_in_turns(
-        lambda: FIP._launch(pools[0], img, pix, r_vox, prow, consts),
-        lambda: FIP.fused_integrate_points_rows_ref(pools[1], img, pix,
-                                                    r_vox, prow, c_dev))
-    # pix, r_vox, sdf and weight (16 B) read per voxel; sumsq (4 B) read
-    # and 12 B written per updated voxel; the range image and prow read
-    # once; flags f32[A,2] written.  ~15 f32 operations per voxel
-    nbytes = (A * 512 * 16 + updated * 16 + L_ROWS * L_COLS * 4 + A * 4
-              + A * 8)
-    k3 = kernel_record(t, max(err.values()), nbytes, A * 512 * 15)
-    k3.update(window_blocks=A, updated=updated)
-    return k3
+        lambda: FIP._launch(pools[0], img, pix, r_vox, ptr, e, kind, consts,
+                            flags),
+        lambda: FIP.fused_integrate_points_rows_ref(pools[1], img, *sub,
+                                                    c_dev))
+    # pix, r_vox, sdf and weight (16 B) read per voxel of the entries'
+    # windows; sumsq (4 B) read per weighted voxel and 12 B written per
+    # updated voxel; the range image, ptr and the entry list read once;
+    # flags f32[n,4] written.  ~15 f32 operations per voxel
+    n, nvox = e.numel(), (64 if multires else 512)
+    nbytes = (n * nvox * 16 + wgt_k * 4 + upd_k * 12 + L_ROWS * L_COLS * 4
+              + n * (4 + 8 + 16))
+    rec = kernel_record(t, max(err.values()), nbytes, n * nvox * 15)
+    rec.update(window_blocks=A, res1_blocks=n1, updated=upd_k)
+    return rec
 
 
 def compare_small_lidar():
@@ -796,18 +934,27 @@ def compare_blend_kernels(train, rows=ROWS, cols=COLS):
 # phase 4: the RGB-D path
 # ---------------------------------------------------------------------------
 
-def run_slice(depths, rgb):
+def res1_blocks(gw):
+    """Res-1 blocks in the wrapper's table."""
+    t = gw.state.table
+    return int(((t.res == 1) & (t.ptr != -2)).sum())
+
+
+def run_slice(depths, rgb, multires=False):
+    """Phase 4 (or 7 with multires): N_FRAMES frames of the box-room orbit
+    through GeoWrapper.compute, then streamAllOut + extractMesh.  Returns
+    (launches of K1's paths and K2 over the frames, numbers)."""
     import numpy as np
     import torch
 
     from mrhash_tpu_torch.ops import fused_integrate as FI
     from mrhash_tpu_torch.ops import sample_image as SI
 
-    gw = make_wrapper("cuda")
+    tag = "multires" if multires else "run"
+    gw = make_wrapper("cuda", multires)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    FI.launch_count = 0
-    SI.launch_count = 0
+    FI.launch_count = FI.res1_launch_count = SI.launch_count = 0
     frame_ms, occupied = [], []
     for i in range(N_FRAMES):
         t0 = time.perf_counter()
@@ -816,22 +963,31 @@ def run_slice(depths, rgb):
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         occupied.append(gw.last_stats["occupied_blocks"])
     launches = {"fused_integrate_rows": FI.launch_count,
+                "fused_integrate_rows_res1": FI.res1_launch_count,
                 "sample_image": SI.launch_count}
     peak = torch.cuda.max_memory_allocated()
     stats = gw.last_stats
+    n1 = res1_blocks(gw)
     steady = frame_ms[ORBIT:]
-    log(f"run: {N_FRAMES} frames, launches {launches}")
-    log(f"run: window blocks last {occupied[-1]} max {max(occupied)}; "
-        f"occupied total {stats['occupied_total']}, "
-        f"high_free {stats['high_free']}")
-    log(f"run: frames {ORBIT}-{N_FRAMES - 1}: median "
+    log(f"{tag}: {N_FRAMES} frames, launches {launches}")
+    log(f"{tag}: window blocks last {occupied[-1]} max {max(occupied)}, of "
+        f"them res 0 last {stats['res0_blocks']}; occupied total "
+        f"{stats['occupied_total']} ({n1} at res 1), high_free "
+        f"{stats['high_free']}, low_free {stats['low_free']}")
+    log(f"{tag}: frames {ORBIT}-{N_FRAMES - 1}: median "
         f"{statistics.median(steady):.3f} ms, "
         f"mean {statistics.fmean(steady):.3f} ms, "
         f"FPS {1e3 / statistics.fmean(steady):.2f}; starve frame 100 "
         f"{frame_ms[100]:.3f} ms; first frame {frame_ms[0]:.1f} ms")
-    log(f"run: peak device memory {peak / 2**30:.3f} GiB")
-    assert launches["fused_integrate_rows"] == N_FRAMES, launches
+    log(f"{tag}: peak device memory {peak / 2**30:.3f} GiB")
     assert launches["sample_image"] >= 1, launches
+    if multires:
+        assert launches["fused_integrate_rows"] >= 1, launches
+        assert launches["fused_integrate_rows_res1"] >= ORBIT, launches
+        assert n1 > 10000 and n1 > stats["res0_blocks"], "barely coarsened"
+    else:
+        assert launches["fused_integrate_rows"] == N_FRAMES, launches
+        assert launches["fused_integrate_rows_res1"] == 0, launches
 
     t0 = time.perf_counter()
     gw.streamAllOut()
@@ -839,34 +995,39 @@ def run_slice(depths, rgb):
         gw.extractMesh(os.path.join(tmp, "mesh.ply"))
     mesh_s = time.perf_counter() - t0
     v, f = gw.getVertices(), gw.getFaces()
-    log(f"mesh: {v.shape[0]} vertices, {f.shape[0]} faces "
+    log(f"{tag} mesh: {v.shape[0]} vertices, {f.shape[0]} faces "
         f"(streamAllOut + extractMesh {mesh_s:.1f} s)")
     assert v.shape[0] > 10000, v.shape
     assert np.isfinite(v).all()
     # the reconstruction lies on the box room's walls
     wall = np.abs(np.abs(v).max(axis=1) - HALF)
     on_wall = float((wall < 0.03).mean())
-    log(f"mesh: {on_wall:.4f} of vertices within 3 cm of a wall")
+    log(f"{tag} mesh: {on_wall:.4f} of vertices within 3 cm of a wall")
     assert on_wall > 0.95, on_wall
     return launches, dict(median_ms=statistics.median(steady),
                           fps=1e3 / statistics.fmean(steady),
-                          peak_gib=peak / 2**30)
+                          peak_gib=peak / 2**30, res1_blocks=n1,
+                          res0_window=stats["res0_blocks"], mesh_s=mesh_s)
 
 
 # ---------------------------------------------------------------------------
 # phase 5: the LiDAR path
 # ---------------------------------------------------------------------------
 
-def run_lidar(clouds):
+def run_lidar(clouds, multires=False):
+    """Phase 5 (or 8 with multires): L_FRAMES scans through
+    GeoWrapper.compute, then streamAllOut + extractMesh.  Returns
+    (launches of K3's paths over the scans, numbers)."""
     import numpy as np
     import torch
 
     from mrhash_tpu_torch.ops import fused_integrate_points as FIP
 
-    gw = make_lidar_wrapper("cuda", clouds[0])
+    tag = "multires lidar" if multires else "lidar"
+    gw = make_lidar_wrapper("cuda", clouds[0], multires)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    FIP.launch_count = 0
+    FIP.launch_count = FIP.res1_launch_count = 0
     frame_ms, occupied = [], []
     for i in range(L_FRAMES):
         t0 = time.perf_counter()
@@ -874,21 +1035,30 @@ def run_lidar(clouds):
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         occupied.append(gw.last_stats["occupied_blocks"])
-    launches = FIP.launch_count
+    launches = {"fused_integrate_points_rows": FIP.launch_count,
+                "fused_integrate_points_rows_res1": FIP.res1_launch_count}
     peak = torch.cuda.max_memory_allocated()
     steady = frame_ms[L_STEADY:]
     stats = gw.last_stats
-    log(f"lidar: {L_FRAMES} scans of {L_ROWS}x{L_COLS}, K3 launches "
+    n1 = res1_blocks(gw)
+    log(f"{tag}: {L_FRAMES} scans of {L_ROWS}x{L_COLS}, K3 launches "
         f"{launches}")
-    log(f"lidar: window blocks first {occupied[0]} last {occupied[-1]}; "
-        f"high_free {stats['high_free']}")
-    log(f"lidar: scans {L_STEADY}-{L_FRAMES - 1}: median "
+    log(f"{tag}: window blocks first {occupied[0]} last {occupied[-1]}, "
+        f"of them res 0 last {stats['res0_blocks']}; {n1} res-1 blocks; "
+        f"high_free {stats['high_free']}, low_free {stats['low_free']}")
+    log(f"{tag}: scans {L_STEADY}-{L_FRAMES - 1}: median "
         f"{statistics.median(steady):.3f} ms, mean "
         f"{statistics.fmean(steady):.3f} ms, FPS "
         f"{1e3 / statistics.fmean(steady):.2f}; first scan "
         f"{frame_ms[0]:.1f} ms")
-    log(f"lidar: peak device memory {peak / 2**30:.3f} GiB")
-    assert launches == L_FRAMES, launches
+    log(f"{tag}: peak device memory {peak / 2**30:.3f} GiB")
+    if multires:
+        assert launches["fused_integrate_points_rows"] >= 1, launches
+        assert launches["fused_integrate_points_rows_res1"] >= 1, launches
+        assert n1 > 1000, "barely coarsened"
+    else:
+        assert launches["fused_integrate_points_rows"] == L_FRAMES, launches
+        assert launches["fused_integrate_points_rows_res1"] == 0, launches
 
     t0 = time.perf_counter()
     gw.streamAllOut()
@@ -896,21 +1066,22 @@ def run_lidar(clouds):
         gw.extractMesh(os.path.join(tmp, "mesh.ply"))
     mesh_s = time.perf_counter() - t0
     v, f = gw.getVertices(), gw.getFaces()
-    log(f"lidar mesh: {v.shape[0]} vertices, {f.shape[0]} faces "
+    log(f"{tag} mesh: {v.shape[0]} vertices, {f.shape[0]} faces "
         f"(streamAllOut + extractMesh {mesh_s:.1f} s)")
     assert v.shape[0] > 10000, v.shape
     assert np.isfinite(v).all()
     ground = np.abs(v[:, 2] - L_GROUND) < L_TOL
     wall = np.abs(np.hypot(v[:, 0], v[:, 1]) - L_WALL) < L_TOL
     on = float((ground | wall).mean())
-    log(f"lidar mesh: {on:.4f} of vertices within {L_TOL} m of the ground "
+    log(f"{tag} mesh: {on:.4f} of vertices within {L_TOL} m of the ground "
         f"or the wall ({float(ground.mean()):.4f} ground, "
         f"{float(wall.mean()):.4f} wall)")
     assert on > 0.95, on
     return launches, dict(median_ms=statistics.median(steady),
                           mean_ms=statistics.fmean(steady),
                           fps=1e3 / statistics.fmean(steady),
-                          peak_gib=peak / 2**30, window=occupied[-1])
+                          peak_gib=peak / 2**30, window=occupied[-1],
+                          res1_blocks=n1)
 
 
 # ---------------------------------------------------------------------------
@@ -1072,6 +1243,7 @@ def main():
 
     # 3. compare
     compare_small_scene()
+    compare_small_scene(multires=True)
     compare_small_lidar()
     compare_small_gs()
     compare_qtree(train[0]["rgb"])
@@ -1081,11 +1253,23 @@ def main():
         f"bound {k1['bound_ms']:.4f} ms) over {k1['window_blocks']} blocks; "
         f"K2 {k2['ms']:.4f} ms (twin {k2['plain_ms']:.4f} ms, torch.take "
         f"{k2['library_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms) [{smi}]")
+    k1r = compare_k1_res1(depths, rgb)
+    torch.cuda.empty_cache()
+    log(f"compare: K1 res-1 {k1r['ms']:.4f} ms (twin {k1r['plain_ms']:.4f} "
+        f"ms, bound {k1r['bound_ms']:.4f} ms, {k1r['bytes']} B) over "
+        f"{k1r['res1_blocks']} res-1 blocks of a {k1r['window_blocks']}-block "
+        f"window [{smi}]")
     k3 = compare_lidar_kernel(clouds)
     torch.cuda.empty_cache()
     log(f"compare: K3 {k3['ms']:.4f} ms (twin {k3['plain_ms']:.4f} ms, "
         f"bound {k3['bound_ms']:.4f} ms, {k3['bytes']} B) over "
         f"{k3['window_blocks']} blocks [{smi}]")
+    k3r = compare_lidar_kernel(clouds, multires=True)
+    torch.cuda.empty_cache()
+    log(f"compare: K3 res-1 {k3r['ms']:.4f} ms (twin {k3r['plain_ms']:.4f} "
+        f"ms, bound {k3r['bound_ms']:.4f} ms, {k3r['bytes']} B) over "
+        f"{k3r['res1_blocks']} res-1 blocks of a {k3r['window_blocks']}-block "
+        f"window [{smi}]")
     k4, k5 = compare_blend_kernels(train)
     torch.cuda.empty_cache()
     for name, k in (("K4", k4), ("K5", k5)):
@@ -1100,7 +1284,8 @@ def main():
     torch.cuda.empty_cache()
 
     # 5. the LiDAR path
-    launches["fused_integrate_points_rows"], lrun = run_lidar(clouds)
+    l_launches, lrun = run_lidar(clouds)
+    launches.update(l_launches)
     log(f"lidar: {lrun['fps']:.2f} FPS, median {lrun['median_ms']:.3f} "
         f"ms/scan, mean {lrun['mean_ms']:.3f} ms/scan, window "
         f"{lrun['window']} blocks, peak {lrun['peak_gib']:.3f} GiB [{smi}]")
@@ -1114,11 +1299,34 @@ def main():
         f"{grun['psnr']['train']:.2f} / {grun['psnr']['holdout']:.2f} dB, "
         f"{grun['gaussians']} Gaussians, peak {grun['peak_gib']:.3f} GiB "
         f"[{smi}]")
+    torch.cuda.empty_cache()
+
+    # 7. the multi-res RGB-D path
+    mr_launches, mrun = run_slice(depths, rgb, multires=True)
+    log(f"multires: {mrun['fps']:.2f} FPS, median {mrun['median_ms']:.3f} "
+        f"ms/frame, {mrun['res1_blocks']} res-1 blocks, res-0 window "
+        f"{mrun['res0_window']}, peak {mrun['peak_gib']:.3f} GiB, K1 "
+        f"launches {mr_launches} [{smi}]")
+    torch.cuda.empty_cache()
+
+    # 8. the multi-res LiDAR path
+    ml_launches, mlrun = run_lidar(clouds, multires=True)
+    log(f"multires lidar: {mlrun['fps']:.2f} scans/s, median "
+        f"{mlrun['median_ms']:.3f} ms/scan, {mlrun['res1_blocks']} res-1 "
+        f"blocks, peak {mlrun['peak_gib']:.3f} GiB, K3 launches "
+        f"{ml_launches} [{smi}]")
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "mrhash_tpu"))
     assert not loaded, f"the port loaded {loaded}"
 
+    # K1 and K3 carry their res-1 paths' figures beside the res-0 ones:
+    # res-1 times from phase 3's multi-res windows, res-1 launches from
+    # phases 7 and 8 (multires_launches: their res-0 launches there)
+    res1 = {"fused_integrate_rows": (k1r, mr_launches, "fused_integrate_rows"),
+            "fused_integrate_points_rows": (k3r, ml_launches,
+                                            "fused_integrate_points_rows"),
+            "sample_image": (None, mr_launches, "sample_image")}
     kernels = []
     for name, src, replaces, rec in (
             ("fused_integrate_rows", "fused_integrate.cu",
@@ -1131,11 +1339,21 @@ def main():
              "mrhash_tpu/gs/blend_pallas.py:70", k4),
             ("blend_backward", "blend_tiles.cu",
              "mrhash_tpu/gs/blend_pallas.py:110", k5)):
-        kernels.append(dict(
+        entry = dict(
             name=name, route="cuda", source="mrhash_tpu_torch/csrc/" + src,
             replaces=replaces, launches=launches[name],
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}))
+                                   "bound_ms", "bound_by", "library_ms")})
+        if name in res1:
+            r, ml, key = res1[name]
+            entry["multires_launches"] = ml[key]
+            if r is not None:
+                entry.update(
+                    res1_launches=ml[key + "_res1"],
+                    **{"res1_" + k: r[k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by")})
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

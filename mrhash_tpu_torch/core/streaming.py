@@ -1,9 +1,9 @@
 """Host chunk grid, stream-all-out and the mesh snapshot.
 
-Minimal port of mrhash_tpu/core/streaming.py for the single-resolution
-slice: the numpy `ChunkGrid` (copied, because mrhash_tpu/core/streaming.py
-imports jax), `Streamer.stream_all_out` and `Streamer.snapshot_into` as
-plain device -> host copies of the occupied blocks' rows, and the debug
+Minimal port of mrhash_tpu/core/streaming.py for the ported slices (one
+resolution or multi-resolution): the numpy `ChunkGrid` (copied, because
+mrhash_tpu/core/streaming.py imports jax), `Streamer.stream_all_out` and `Streamer.snapshot_into` as
+plain device -> host copies of the occupied blocks' voxels, and the debug
 `serialize_data` / `print_statistics`.  Streaming triggered by the heap
 watermark, stream-in and the grid checkpoints are not ported yet
 (ROADMAP A8); GeoWrapper.compute raises when the watermark is reached.
@@ -74,26 +74,39 @@ class ChunkGrid:
 
 class Streamer:
     """Host side of the map (Streamer<T>, streamer.cuh:173-415), reduced to
-    what the single-resolution slice calls."""
+    what the ported slices call."""
 
     def __init__(self, cfg: MapConfig):
         self.cfg = cfg
         self.grid = ChunkGrid(np.asarray(cfg.voxel_extents, np.float32))
 
     def _occupied_to_host(self, state: MapState, with_ssq=True):
-        """Copy every occupied block (descriptor + pool row) to the host.
-        Returns (slots, pos, res, sdf, ssq, w, rgb); numpy except slots."""
+        """Copy every occupied block (descriptor + voxels) to the host in
+        the host layout that native/mrhash_mesh.cpp and serialize_data read
+        (reference: mrhash_tpu/core/streaming.py:66-95): a res-0 block's
+        row, a res-1 block's 64-voxel window at lanes [0, 64) with zeros
+        beyond.  Returns (slots, pos, res, sdf, ssq, w, rgb); numpy except
+        slots."""
         table, pool = state.table, state.pool
         slots = torch.nonzero(table.ptr != H.FREE).flatten()
-        rows = I._block_rows(table.ptr[slots])
+        res = table.res[slots]
+        rows, lane0 = I._block_rows(table.ptr[slots])
+        low = torch.nonzero(res == 1).flatten()
+        win = lane0[low, None] + torch.arange(P.TOTAL_LOW_BLOCK_SIZE,
+                                              device=low.device)
 
-        def host(t):
-            return t.cpu().numpy()
+        def host(field):
+            r = field[rows]                       # [S,512] row gather
+            if low.numel():
+                w = r[low].gather(1, win)
+                r[low] = 0
+                r[low, :P.TOTAL_LOW_BLOCK_SIZE] = w
+            return r.cpu().numpy()
 
-        sdf = host(pool.sdf[rows])
-        ssq = host(pool.sumsq[rows]) if with_ssq else np.zeros_like(sdf)
-        return (slots, host(table.pos[slots]), host(table.res[slots]), sdf,
-                ssq, host(pool.weight[rows]), host(pool.rgbp[rows]))
+        sdf = host(pool.sdf)
+        ssq = host(pool.sumsq) if with_ssq else np.zeros_like(sdf)
+        return (slots, table.pos[slots].cpu().numpy(), res.cpu().numpy(),
+                sdf, ssq, host(pool.weight), host(pool.rgbp))
 
     def _add(self, grid, pos, res, sdf, ssq, w, rgb):
         block_world = (pos.astype(np.float64) * P.SDF_BLOCK_SIZE
@@ -110,11 +123,11 @@ class Streamer:
 
     def stream_all_out(self, state: MapState) -> MapState:
         """streamAllOut (streamer.cpp:249-281): move every block to the host
-        grid, free its table entry and heap block, zero its pool row."""
+        grid, free its table entry and heap block, zero its window."""
         slots, *blocks = self._occupied_to_host(state)
         self._add(self.grid, *blocks)
-        ptrs, _ = H.free_slots(state.table, slots)
-        I._clear_blocks(state.pool, ptrs)
+        ptrs, res = H.free_slots(state.table, slots)
+        I._clear_blocks(state.pool, ptrs, res)
         return state
 
     def serialize_data(self, filename_hash, filename_voxel):

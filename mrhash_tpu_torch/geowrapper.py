@@ -1,15 +1,16 @@
 """GeoWrapper: the user-facing API of the port.
 
 Same constructor arguments and method names as mrhash_tpu/geowrapper.py
-(the reference's bound class, geowrapper.{h,cpp}), for the
-single-resolution RGB-D and LiDAR paths: setCamera / setCurrPose /
-setDepthImage + setRGBImage or setPointCloud / compute, then streamAllOut /
-extractMesh / serializeData / clearBuffers; with a
-gs_optimization_param_path, online 3D Gaussian Splatting after each RGB-D
-frame, then GSFinalOpt / GSSavePointCloud.  Every frame runs eagerly on
-`device` ("cuda" by default).  Out of these slices, and raising instead of
-skipping: multi-resolution (sdf_var_threshold > 0),
-the non-projective LiDAR update (projective_sdf=False) and starvation under
+(the reference's bound class, geowrapper.{h,cpp}), for the RGB-D and LiDAR
+paths, at one resolution or with variance-adaptive multi-resolution
+(sdf_var_threshold > 0: low-variance blocks coarsen to 4^3 blocks at twice
+the voxel spacing): setCamera / setCurrPose / setDepthImage + setRGBImage
+or setPointCloud / compute, then streamAllOut / extractMesh /
+serializeData / clearBuffers; with a gs_optimization_param_path, online 3D
+Gaussian Splatting after each RGB-D frame, then GSFinalOpt /
+GSSavePointCloud.  Every frame runs eagerly on `device` ("cuda" by
+default).  Out of these slices, and raising instead of skipping: the
+non-projective LiDAR update (projective_sdf=False) and starvation under
 the spherical model (n_frames_invalidate_voxels > 0 with a spherical
 camera), the viewer thread, and streaming triggered by the heap watermark
 (ROADMAP A8).
@@ -92,9 +93,6 @@ class GeoWrapper:
                                "PyTorch path)")
         if viewer_active:
             raise NotImplementedError("viewer_active: not ported yet")
-        if sdf_var_threshold > 0.0:
-            raise NotImplementedError("multi-resolution (sdf_var_threshold "
-                                      "> 0): not ported yet")
         # projective_sdf only steers the LiDAR update; RGB-D ignores it, as
         # in the reference
         self._projective_sdf = bool(projective_sdf)
@@ -117,6 +115,7 @@ class GeoWrapper:
             integration_weight_sample=int(integration_weight_sample),
             max_integration_distance=float(max_depth),
             n_frames_invalidate_voxels=int(n_frames_invalidate_voxels),
+            sdf_var_threshold=float(sdf_var_threshold),
             min_weight_threshold=int(min_weight_threshold),
             marching_cubes_threshold=float(marching_cubes_threshold),
             vertices_merging_threshold=float(vertices_merging_threshold),

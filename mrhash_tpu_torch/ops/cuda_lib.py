@@ -37,17 +37,18 @@ _i = ctypes.c_int
 _i64 = ctypes.c_int64
 _f = ctypes.c_float
 SIGNATURES = {
-    # depth, rgbp, cols, cam, bpos, prow, n_blocks,
+    # depth, rgbp, cols, cam, bpos, ptr, entries, n_entries, res,
     # sdf, sumsq, weight, rgbp_pool, flags, stream
-    "mrhash_fused_integrate_rows": [_vp, _vp, _i, _vp, _vp, _vp, _i64,
-                                    _vp, _vp, _vp, _vp, _vp, _vp],
+    "mrhash_fused_integrate_window": [_vp, _vp, _i, _vp, _vp, _vp, _vp,
+                                      _i64, _i, _vp, _vp, _vp, _vp, _vp,
+                                      _vp],
     # img, rows, cols, row, col, ok, n_blocks, out, stream
     "mrhash_sample_image": [_vp, _i, _i, _vp, _vp, _vp, _i64, _vp, _vp],
-    # img, pix, r_vox, prow, n_blocks, t0, t1, max_int, w_sample, w_max,
-    # vvs, sdf, sumsq, weight, flags, stream
-    "mrhash_fused_integrate_points_rows": [_vp, _vp, _vp, _vp, _i64,
-                                           _f, _f, _f, _f, _f, _f,
-                                           _vp, _vp, _vp, _vp, _vp],
+    # img, pix, r_vox, ptr, entries, n_entries, res, t0, t1, max_int,
+    # w_sample, w_max, vvs, sdf, sumsq, weight, flags, stream
+    "mrhash_fused_integrate_points_window": [_vp, _vp, _vp, _vp, _vp, _i64,
+                                             _i, _f, _f, _f, _f, _f, _f,
+                                             _vp, _vp, _vp, _vp, _vp],
     # attr, valid, n_tiles, K, grid_x, tfin, cfin, mask, stream
     "mrhash_blend_forward": [_vp, _vp, _i, _i, _i, _vp, _vp, _vp, _vp],
     # attr, n_tiles, K, grid_x, tfin, mask, gt, gc, gout, stream

@@ -1,27 +1,34 @@
 """Kernel K1: fused TSDF integrate of the compacted block window.
 
-Replaces mrhash_tpu/ops/fused_integrate.py::_kernel, res-0 branch (the
-Pallas kernel behind fused_integrate_pallas).  The CUDA source is
-csrc/fused_integrate.cu; its header comment gives the design.  In short,
-one CTA per window block and one thread per voxel: projection, depth + RGB
-load at the voxel's own pixel, truncation, combineVoxel and the Welford
-update, written in place into the block's pool row, then a block reduction
-of the GC flags.
+Replaces mrhash_tpu/ops/fused_integrate.py::_kernel, both its res-0 branch
+and its packed res-1 branch (the Pallas kernel behind
+fused_integrate_pallas).  The CUDA source is csrc/fused_integrate.cu; its
+header comment gives the design.  In short, one thread per voxel of each
+window entry: a 512-thread CTA serves one res-0 entry or 8 res-1 entries
+of 64 voxels each.  Each thread projects its voxel, loads depth + RGB at
+its own pixel, applies truncation, combineVoxel and the Welford update,
+and writes its voxel in place at ptr + local; each entry then reduces its
+flags over its own window.  Entries own disjoint windows (siblings of a
+shared row included), so no row packing is needed.
 
-Bound on the card: bytes — 12 B of pool read per voxel, 4 B of rgbp read
-and 16 B written per updated voxel, the frame read once.  The TPU kernel's patch + one-hot MXU
-sampling and the pack/scatter of pool rows existed to keep the frame and
-the rows in VMEM; on Hopper a direct load of each voxel's pixel (L2
-resident) and an in-place row update move the fewest bytes.
+Bound on the card: bytes — 12 B of pool read per voxel of the window, 4 B
+of rgbp read and 16 B written per updated voxel, the frame read once.  The
+TPU kernel's patch + one-hot MXU sampling and the pack/scatter of pool rows
+existed to keep the frame and the rows in VMEM; on Hopper a direct load of
+each voxel's pixel (L2 resident) and an in-place window update move the
+fewest bytes.
 
 `fused_integrate_rows` takes the plain PyTorch twin
 `fused_integrate_rows_ref` for CPU tensors only; for CUDA tensors it
-launches the kernel or raises.  `launch_count` counts kernel launches.
+launches the kernel or raises.  `launch_count` counts launches of the res-0
+kernel, `res1_launch_count` those of the res-1 kernel.
 """
 from __future__ import annotations
 
 import torch
 
+from mrhash_tpu_torch.core.state import (check_windows, put_windows,
+                                         window_voxels)
 from mrhash_tpu_torch.ops import cuda_lib
 
 LANES = 512
@@ -29,6 +36,7 @@ CAM_VEC_LEN = 32
 FAR_F32 = 3e38
 
 launch_count = 0
+res1_launch_count = 0
 
 
 def make_cam_vec(cam, vvs, trunc0, trunc1, max_int, w_sample, w_max):
@@ -46,11 +54,25 @@ def make_cam_vec(cam, vvs, trunc0, trunc1, max_int, w_sample, w_max):
     return torch.cat([head, cam.rot.reshape(-1), cam.trans, tail, pad])
 
 
-def fused_integrate_rows_ref(pool, depth_img, rgb_img, cam_vec, bpos, prow):
+def _lattice_offsets(res):
+    """Voxel-lattice offsets (x, y, z) f32[A,512] of each window lane: the
+    8^3 lattice of a res-0 block, the 4^3 lattice at twice the spacing of a
+    res-1 block (lanes past 64 repeat its last voxel)."""
+    lane = torch.arange(LANES, device=res.device)
+    l4 = torch.clamp(lane, max=63)
+    low = (res == 1)[:, None]
+    return tuple(torch.where(low, lo, hi).to(torch.float32) for lo, hi in (
+        ((l4 % 4) * 2, lane % 8),
+        (((l4 // 4) % 4) * 2, (lane // 8) % 8),
+        ((l4 // 16) * 2, lane // 64)))
+
+
+def fused_integrate_rows_ref(pool, depth_img, rgb_img, cam_vec, bpos, ptr,
+                             res):
     """Plain PyTorch twin of the kernel: the same f32 operations in the
-    same order.  Updates the pool rows `prow` in place and returns the
-    flags f32[A,4] (min |sdf| over weighted lanes, max weight, weight sum,
-    sumsq sum over weighted lanes)."""
+    same order, entry by entry.  Updates each entry's window in place and
+    returns the flags f32[A,4] over its window (min |sdf| over weighted
+    lanes, max weight, weight sum, sumsq sum over weighted lanes)."""
     c = cam_vec
     fx, fy, cx, cy, min_d, max_d = c[0], c[1], c[2], c[3], c[4], c[5]
     r00, r01, r02, r10, r11, r12, r20, r21, r22 = (c[6 + k] for k in range(9))
@@ -58,10 +80,7 @@ def fused_integrate_rows_ref(pool, depth_img, rgb_img, cam_vec, bpos, prow):
     vvs, t0, t1, max_int = c[18], c[19], c[20], c[21]
     w_samp, w_max, rows_f, cols_f = c[22], c[23], c[24], c[25]
 
-    lane = torch.arange(LANES, device=bpos.device)
-    offx = (lane % 8).to(torch.float32)
-    offy = ((lane // 8) % 8).to(torch.float32)
-    offz = (lane // 64).to(torch.float32)
+    offx, offy, offz = _lattice_offsets(res)
     bp = bpos.to(torch.float32)
     pwx = (bp[:, 0:1] * 8.0 + offx) * vvs - tx
     pwy = (bp[:, 1:2] * 8.0 + offy) * vvs - ty
@@ -82,15 +101,16 @@ def fused_integrate_rows_ref(pool, depth_img, rgb_img, cam_vec, bpos, prow):
     depth = torch.where(ok, depth_img.reshape(-1)[flat], 0.0)
     pk = torch.where(ok, rgb_img.reshape(-1)[flat], 0)
 
-    sdf0, ssq0 = pool.sdf[prow], pool.sumsq[prow]
-    w0, rgbp0 = pool.weight[prow], pool.rgbp[prow]
+    vidx, valid = window_voxels(ptr, res)
+    sdf0, ssq0 = pool.sdf.view(-1)[vidx], pool.sumsq.view(-1)[vidx]
+    w0, rgbp0 = pool.weight.view(-1)[vidx], pool.rgbp.view(-1)[vidx]
 
     depth_ok2 = ok & (depth != 0.0) & (depth <= max_int)
     s = depth - pcz
     trunc = t0 + t1 * depth
     inside = s > -trunc
     s = torch.clamp(s, min=-trunc, max=trunc)
-    update = depth_ok2 & inside
+    update = valid & depth_ok2 & inside
 
     w0f = w0.to(torch.float32)
     half = vvs * 0.5
@@ -112,11 +132,12 @@ def fused_integrate_rows_ref(pool, depth_img, rgb_img, cam_vec, bpos, prow):
     out_sdf = torch.where(update, m_sdf, sdf0)
     out_ssq = torch.where(update, m_ssq, ssq0)
     out_w = torch.where(update, m_w, w0)
-    pool.sdf[prow] = out_sdf
-    pool.sumsq[prow] = out_ssq
-    pool.weight[prow] = out_w
-    pool.rgbp[prow] = torch.where(update, rgbp_m, rgbp0)
+    for field, vals in ((pool.sdf, out_sdf), (pool.sumsq, out_ssq),
+                        (pool.weight, out_w),
+                        (pool.rgbp, torch.where(update, rgbp_m, rgbp0))):
+        put_windows(field, vidx, valid, vals)
 
+    out_w = torch.where(valid, out_w, 0)
     weighted = out_w > 0
     return torch.stack([
         torch.where(weighted, torch.abs(out_sdf), FAR_F32).amin(dim=1),
@@ -125,11 +146,13 @@ def fused_integrate_rows_ref(pool, depth_img, rgb_img, cam_vec, bpos, prow):
         torch.where(weighted, out_ssq, 0.0).sum(dim=1)], dim=1)
 
 
-def fused_integrate_rows(pool, depth_img, rgb_img, cam_vec, bpos, prow):
+def fused_integrate_rows(pool, depth_img, rgb_img, cam_vec, bpos, ptr, res):
     """K1 wrapper.  pool: VoxelPool of [N,512] rows; depth_img f32[H,W];
     rgb_img i32[H,W] packed r | g<<8 | b<<16; cam_vec f32[32]
-    (make_cam_vec); bpos i32[A,3]; prow i64[A] distinct rows in [0, N).
-    Updates the rows in place and returns flags f32[A,4]."""
+    (make_cam_vec); window entries bpos i32[A,3], ptr i32[A] and res i32[A]
+    with disjoint windows [ptr, ptr + 512) (res 0) or [ptr, ptr + 64)
+    (res 1) inside the pool.  Updates the windows in place and returns
+    flags f32[A,4]."""
     dev = depth_img.device
     H_, W_ = depth_img.shape
     N = pool.sdf.shape[0]
@@ -139,36 +162,45 @@ def fused_integrate_rows(pool, depth_img, rgb_img, cam_vec, bpos, prow):
     e(rgb_img, "rgb_img", torch.int32, (H_, W_), dev)
     e(cam_vec, "cam_vec", torch.float32, (CAM_VEC_LEN,), dev)
     e(bpos, "bpos", torch.int32, (A, 3), dev)
-    e(prow, "prow", torch.int64, (A,), dev)
+    e(ptr, "ptr", torch.int32, (A,), dev)
+    e(res, "res", torch.int32, (A,), dev)
     for f, dt in (("sdf", torch.float32), ("sumsq", torch.float32),
                   ("weight", torch.int32), ("rgbp", torch.int32)):
         e(getattr(pool, f), f"pool.{f}", dt, (N, LANES), dev)
-    if A and not bool(((prow >= 0) & (prow < N)).all()):
-        raise ValueError(f"prow: a row outside [0, {N})")
+    n1 = check_windows(ptr, res, N) if A else 0
     if dev.type == "cpu":
         return fused_integrate_rows_ref(pool, depth_img, rgb_img, cam_vec,
-                                        bpos, prow)
+                                        bpos, ptr, res)
     if dev.type != "cuda":
         raise ValueError(f"fused_integrate_rows: no kernel for {dev}")
-    return _launch(pool, depth_img, rgb_img, cam_vec, bpos, prow)
-
-
-def _launch(pool, depth_img, rgb_img, cam_vec, bpos, prow):
-    """Launch K1 on CUDA operands that fused_integrate_rows has validated
-    (the range check syncs, so kernel timings call this directly)."""
-    dev = depth_img.device
-    A = bpos.shape[0]
     flags = torch.empty((A, 4), dtype=torch.float32, device=dev)
-    if A == 0:
-        return flags
+    order = torch.argsort(res, stable=True)      # res-0 entries first
+    for kind, entries in ((0, order[:A - n1]), (1, order[A - n1:])):
+        _launch(pool, depth_img, rgb_img, cam_vec, bpos, ptr, entries, kind,
+                flags)
+    return flags
+
+
+def _launch(pool, depth_img, rgb_img, cam_vec, bpos, ptr, entries, kind,
+            flags):
+    """Launch K1's res-`kind` kernel over the window entries `entries`
+    (i64, all of that resolution) of CUDA operands that
+    fused_integrate_rows has validated (the check syncs, so kernel timings
+    call this directly); writes their rows of `flags`."""
+    n = entries.shape[0]
+    if n == 0:
+        return
     lib = cuda_lib.library()
     p = cuda_lib.ptr
-    with torch.cuda.device(dev):
-        rc = lib.mrhash_fused_integrate_rows(
+    with torch.cuda.device(depth_img.device):
+        rc = lib.mrhash_fused_integrate_window(
             p(depth_img), p(rgb_img), depth_img.shape[1], p(cam_vec),
-            p(bpos), p(prow), A, p(pool.sdf), p(pool.sumsq), p(pool.weight),
-            p(pool.rgbp), p(flags), cuda_lib.stream_of(depth_img))
+            p(bpos), p(ptr), p(entries), n, kind, p(pool.sdf),
+            p(pool.sumsq), p(pool.weight), p(pool.rgbp), p(flags),
+            cuda_lib.stream_of(depth_img))
     cuda_lib.check(rc, "fused_integrate_rows")
-    global launch_count
-    launch_count += 1
-    return flags
+    global launch_count, res1_launch_count
+    if kind == 0:
+        launch_count += 1
+    else:
+        res1_launch_count += 1

@@ -263,6 +263,20 @@ def free_slots(table: HashTable, slots):
     return ptrs, res
 
 
+def split_high_blocks(table: HashTable, n_split: int):
+    """allocateMemoryLow (voxel_data_structures.cu:859-871), in place: pop
+    up to n_split res-0 blocks from the high heap and push their 8 sub-block
+    ids each, in order, onto the low heap."""
+    want = torch.ones(min(n_split, table.high_count), dtype=torch.bool,
+                      device=table.heap_high.device)
+    ids, _, table.high_count = _heap_draw(table.heap_high, table.high_count,
+                                          want)
+    sub = (ids[:, None] * P.OCTREE_BRANCHING_FACTOR
+           + torch.arange(P.OCTREE_BRANCHING_FACTOR, dtype=ids.dtype,
+                          device=ids.device)).reshape(-1)
+    table.low_count = _heap_push(table.heap_low, table.low_count, sub)
+
+
 def compact_indices(mask, k: int):
     """Positions (int64) of the first k set entries of `mask`."""
     return torch.nonzero(mask).flatten()[:k]

@@ -59,8 +59,8 @@ def _window(device):
         keys, valid = I.alloc_candidates_depth(
             cfg, cam, pc_depth, cfg.dda_steps(5.0), frame=i)
         I.alloc_blocks(cfg, st.table, keys, valid, i)
-    _, bpos, bptr, _ = I.compact_active(cfg, st.table, cam)
-    return cfg, cam, st, depths, rgb, bpos, bptr
+    _, bpos, bptr, bres = I.compact_active(cfg, st.table, cam)
+    return cfg, cam, st, depths, rgb, bpos, bptr, bres
 
 
 @pytest.fixture(scope="module")
@@ -71,12 +71,12 @@ def scene():
 @pytest.fixture(scope="module")
 def port_run(scene):
     """The port's fused integrate over the frames: pool rows + last flags."""
-    cfg, cam, st, depths, rgb, bpos, bptr = scene
+    cfg, cam, st, depths, rgb, bpos, bptr, bres = scene
     pool = make_state(cfg.num_blocks).pool
     for d in depths:
         aux = I.fused_integrate_depth(cfg, pool, cam, torch.from_numpy(d),
-                                      torch.from_numpy(rgb), bpos, bptr)
-    rows = I._block_rows(bptr).numpy()
+                                      torch.from_numpy(rgb), bpos, bptr, bres)
+    rows = I._block_rows(bptr)[0].numpy()
     return {f: getattr(pool, f).numpy()[rows] for f in
             ("sdf", "sumsq", "weight", "rgbp")}, aux
 
@@ -92,7 +92,7 @@ def _reference(scene, mode):
     from mrhash_tpu.ops import camera as JC
     from mrhash_tpu.ops import integrate as JI
 
-    cfg, _, _, depths, rgb, bpos, bptr = scene
+    cfg, _, _, depths, rgb, bpos, bptr, _ = scene
     jcfg = JMapConfig(sample_mode="fused", pallas_interpret=True, **CFG)
     jcam = JC.make_camera(*CAM)
     A = bpos.shape[0]
@@ -158,38 +158,40 @@ def test_fused_matches_reference_gather(scene, port_run):
 def test_port_gather_matches_port_fused(scene, port_run):
     """The port's own gather integrate (the plain reference form) agrees
     with its fused path bit for bit."""
-    cfg, cam, _, depths, rgb, bpos, bptr = scene
+    cfg, cam, _, depths, rgb, bpos, bptr, bres = scene
     pool = make_state(cfg.num_blocks).pool
     for d in depths:
         I.integrate_depth(cfg, pool, cam, torch.from_numpy(d),
-                          torch.from_numpy(rgb), bpos, bptr)
-    rows = I._block_rows(bptr).numpy()
+                          torch.from_numpy(rgb), bpos, bptr, bres)
+    rows = I._block_rows(bptr)[0].numpy()
     got, _ = port_run
     for f in ("sdf", "sumsq", "weight", "rgbp"):
         np.testing.assert_array_equal(getattr(pool, f).numpy()[rows], got[f])
 
 
 def test_wrapper_rejects_bad_operands(scene):
-    cfg, cam, st, depths, rgb, bpos, bptr = scene
+    cfg, cam, st, depths, rgb, bpos, bptr, bres = scene
     cam_vec = FI.make_cam_vec(cam, 0.02, 0.06, 0.0, 5.0, 1, 255)
     depth = torch.from_numpy(depths[0])
     rgbp = torch.zeros((ROWS, COLS), dtype=torch.int32)
-    prow = I._block_rows(bptr)
-    with pytest.raises(ValueError, match="prow"):
+    with pytest.raises(ValueError, match="ptr"):
         FI.fused_integrate_rows(st.pool, depth, rgbp, cam_vec, bpos,
-                                prow.to(torch.int32))
+                                bptr.long(), bres)
     with pytest.raises(ValueError, match="depth_img"):
         FI.fused_integrate_rows(st.pool, depth.t(), rgbp.t(), cam_vec, bpos,
-                                prow)
+                                bptr, bres)
     with pytest.raises(ValueError, match="rgb_img"):
         FI.fused_integrate_rows(st.pool, depth, rgbp.float(), cam_vec, bpos,
-                                prow)
-    for bad in (-1, cfg.num_blocks):      # a negative row would wrap
-        prow_bad = prow.clone()
-        prow_bad[-1] = bad
+                                bptr, bres)
+    # a negative window would wrap, one past the pool would write out of
+    # it; a res-0 window must start on a row, a res-1 window on 64 lanes
+    for bad, res in ((-512, 0), (cfg.num_blocks * 512, 0), (64, 0),
+                     (cfg.num_blocks * 512 - 32, 1), (0, 2)):
+        ptr_bad, res_bad = bptr.clone(), bres.clone()
+        ptr_bad[-1], res_bad[-1] = bad, res
         with pytest.raises(ValueError, match="outside"):
             FI.fused_integrate_rows(st.pool, depth, rgbp, cam_vec, bpos,
-                                    prow_bad)
+                                    ptr_bad, res_bad)
 
 
 # ---------------------------------------------------------------------------
@@ -205,8 +207,7 @@ def cuda():
 
 @pytest.mark.gpu
 def test_kernel_matches_twin_on_card(cuda):
-    cfg, cam, st, depths, rgb, bpos, bptr = _window(cuda)
-    prow = I._block_rows(bptr)
+    cfg, cam, st, depths, rgb, bpos, bptr, bres = _window(cuda)
     rgbp = pack_rgb(torch.from_numpy(rgb).to(cuda)).contiguous()
     cam_vec = FI.make_cam_vec(cam, cfg.virtual_voxel_size, cfg.sdf_truncation,
                               cfg.sdf_truncation_scale, 5.0, 1, 255)
@@ -215,8 +216,9 @@ def test_kernel_matches_twin_on_card(cuda):
     n0 = FI.launch_count
     for d in depths:
         dd = torch.from_numpy(d).to(cuda)
-        fk = FI.fused_integrate_rows(pk, dd, rgbp, cam_vec, bpos, prow)
-        ft = FI.fused_integrate_rows_ref(pt, dd, rgbp, cam_vec, bpos, prow)
+        fk = FI.fused_integrate_rows(pk, dd, rgbp, cam_vec, bpos, bptr, bres)
+        ft = FI.fused_integrate_rows_ref(pt, dd, rgbp, cam_vec, bpos, bptr,
+                                         bres)
     torch.cuda.synchronize()
     assert FI.launch_count == n0 + N_FRAMES
     for f in ("weight", "rgbp"):

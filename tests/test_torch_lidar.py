@@ -25,7 +25,8 @@ jit contracts `voxel * vvs - t` into an FMA, PORT_NOTES.md P4).
   test_fused_points_matches_voxel_centric_xla);
   the count of lanes that XLA's and torch's atan2/asin put on another
   pixel is reported and bounded the same way (PORT_NOTES.md P15).
-- (e) on the card: K3 against its twin, exactly.
+- (e) on the card: K3 against its twin: the map exactly, the flags'
+  sumsq sum within rounding (another summation order).
 """
 import numpy as np
 import pytest
@@ -181,8 +182,10 @@ def _pixel_mismatches(ref_window_pos, pts, t):
     want = np.where(ok, np.asarray(row) * COLS + np.asarray(col), -1)
     cam = _port_cam(t)
     el_lo_p, s_el_p = I.scan_raster_mapping(cam, torch.from_numpy(pts))
+    n = ref_window_pos.shape[0]
     pix, _ = I.project_window_sph(MapConfig(**CFG), cam,
                                   torch.from_numpy(ref_window_pos),
+                                  torch.zeros(n, dtype=torch.int32),
                                   el_lo_p, s_el_p)
     return int((pix.numpy() != want).sum())
 
@@ -256,8 +259,8 @@ def test_twin_matches_reference_points_fallback(ref):
     flags = FIP.fused_integrate_points_rows(
         pool, torch.from_numpy(np.array(img)),
         torch.from_numpy(pix.astype(np.int32)),
-        torch.from_numpy(np.array(rv)),
-        torch.from_numpy((bptr // 512).astype(np.int32)), CONSTS)
+        torch.from_numpy(np.array(rv)), torch.from_numpy(bptr),
+        torch.zeros(A, dtype=torch.int32), CONSTS)
     rows = bptr // 512
     for f in ("sdf", "sumsq", "weight"):
         np.testing.assert_array_equal(getattr(pool, f).numpy()[rows],
@@ -277,26 +280,32 @@ def test_wrapper_rejects_bad_operands():
     img = torch.ones((ROWS, COLS))
     pix = torch.zeros((2, 512), dtype=torch.int32)
     r_vox = torch.ones((2, 512))
-    prow = torch.tensor([0, 1], dtype=torch.int32)
-    with pytest.raises(ValueError, match="prow"):
-        FIP.fused_integrate_points_rows(pool, img, pix, r_vox, prow.long(),
-                                        CONSTS)
+    ptr = torch.tensor([0, 512], dtype=torch.int32)
+    res = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="ptr"):
+        FIP.fused_integrate_points_rows(pool, img, pix, r_vox, ptr.long(),
+                                        res, CONSTS)
     with pytest.raises(ValueError, match="pix"):
         FIP.fused_integrate_points_rows(pool, img, pix.t().contiguous(),
-                                        r_vox, prow, CONSTS)
+                                        r_vox, ptr, res, CONSTS)
     with pytest.raises(ValueError, match="consts"):
-        FIP.fused_integrate_points_rows(pool, img, pix, r_vox, prow,
+        FIP.fused_integrate_points_rows(pool, img, pix, r_vox, ptr, res,
                                         CONSTS[:5])
-    for bad_row in (-1, 4):       # a negative row would wrap
-        p = prow.clone()
-        p[1] = bad_row
+    # a negative window would wrap; past the pool, misaligned (a res-1
+    # window on 64 lanes) or another resolution
+    for bad_ptr, bad_res in ((-512, 0), (4 * 512, 0), (100, 0),
+                             (4 * 512 - 32, 1), (0, 2)):
+        p, r = ptr.clone(), res.clone()
+        p[1], r[1] = bad_ptr, bad_res
         with pytest.raises(ValueError, match="outside"):
-            FIP.fused_integrate_points_rows(pool, img, pix, r_vox, p, CONSTS)
+            FIP.fused_integrate_points_rows(pool, img, pix, r_vox, p, r,
+                                            CONSTS)
     for bad_pix in (-2, ROWS * COLS):
         x = pix.clone()
         x[1, 7] = bad_pix
         with pytest.raises(ValueError, match="outside"):
-            FIP.fused_integrate_points_rows(pool, img, x, r_vox, prow, CONSTS)
+            FIP.fused_integrate_points_rows(pool, img, x, r_vox, ptr, res,
+                                            CONSTS)
 
 
 # ---------------------------------------------------------------------------
@@ -313,8 +322,9 @@ def test_fused_points_matches_reference_from_carried_state(ref):
     keys, valid = I.alloc_candidates_points(cfg, cam, points,
                                             cfg.dda_steps(MAX_D))
     I.alloc_blocks(cfg, state.table, keys, valid, state.frame)
-    _, bpos, bptr, _ = I.compact_active(cfg, state.table)
-    aux = I.fused_integrate_points(cfg, state.pool, cam, points, bpos, bptr)
+    _, bpos, bptr, bres = I.compact_active(cfg, state.table)
+    aux = I.fused_integrate_points(cfg, state.pool, cam, points, bpos, bptr,
+                                   bres)
     assert aux["unserved_blocks"] == 0
     g, r = _rows_by_key(state, states[2])
     flips, d = _assert_close_maps(g, r)
@@ -397,8 +407,8 @@ def test_kernel_matches_twin_on_card(cuda):
                                                 cfg.dda_steps(MAX_D))
         I.alloc_blocks(cfg, st.table, keys, valid, st.frame)
         st.frame += 1
-        _, bpos, bptr, _ = I.compact_active(cfg, st.table)
-        operands = I.points_window(cfg, cam, points, bpos, bptr)
+        _, bpos, bptr, bres = I.compact_active(cfg, st.table)
+        operands = I.points_window(cfg, cam, points, bpos, bptr, bres)
         assert operands[-1] == CONSTS
         fk = FIP.fused_integrate_points_rows(pools[0], *operands)
         ft = FIP.fused_integrate_points_rows_ref(pools[1], *operands)
@@ -407,4 +417,6 @@ def test_kernel_matches_twin_on_card(cuda):
     for f in ("sdf", "sumsq", "weight"):
         assert torch.equal(getattr(pools[0], f), getattr(pools[1], f)), f
     assert int((pools[0].weight > 0).sum()) > 20000
-    assert torch.equal(fk, ft)
+    assert torch.equal(fk[:, :3], ft[:, :3])
+    # the sumsq flag is a 512-term sum taken in another order
+    torch.testing.assert_close(fk[:, 3], ft[:, 3], rtol=1e-4, atol=1e-6)

@@ -97,9 +97,10 @@ def _integrated_window(frames=3):
         keys, valid = I.alloc_candidates_depth(cfg, cam, pc_depth,
                                                cfg.dda_steps(5.0), frame=i)
         I.alloc_blocks(cfg, st.table, keys, valid, i)
-        slots, bpos, bptr, _ = I.compact_active(cfg, st.table, cam)
-        I.fused_integrate_depth(cfg, st.pool, cam, pc_depth, rgb, bpos, bptr)
-    return cfg, cam, st, slots, bpos, bptr
+        slots, bpos, bptr, bres = I.compact_active(cfg, st.table, cam)
+        I.fused_integrate_depth(cfg, st.pool, cam, pc_depth, rgb, bpos, bptr,
+                                bres)
+    return cfg, cam, st, slots, bpos, bptr, bres
 
 
 @pytest.fixture(scope="module")
@@ -116,12 +117,12 @@ def test_starve_matches_reference(window, mode):
     from mrhash_tpu.ops import camera as JC
     from mrhash_tpu.ops import integrate as JI
 
-    cfg, cam, st, slots, bpos, bptr = window
+    cfg, cam, st, slots, bpos, bptr, bres = window
     pool0 = {f: getattr(st.pool, f).clone() for f in
              ("sdf", "sumsq", "weight", "rgbp")}
-    starved = I.starve_mask(cfg, cam, bpos, bptr)
+    starved = I.starve_mask(cfg, cam, bpos, bres)
     assert int(starved.sum()) > 1000, "starvation hit nothing"
-    I.starve_voxels(cfg, st.pool, cam, bpos, bptr)
+    I.starve_voxels(cfg, st.pool, cam, bpos, bptr, bres)
     got_w = st.pool.weight.numpy().copy()
     for f, v in pool0.items():                     # restore for the next mode
         getattr(st.pool, f).copy_(v)
@@ -141,7 +142,7 @@ def test_starve_matches_reference(window, mode):
     ref_w = np.asarray(jpool.weight)
     np.testing.assert_array_equal(got_w, ref_w)
     # every starved voxel that had weight lost one unit, and nothing else
-    rows = I._block_rows(bptr)
+    rows = I._block_rows(bptr)[0]
     lost = starved & (pool0["weight"][rows] > 0)
     assert int((got_w != pool0["weight"].numpy()).sum()) == int(lost.sum())
 
@@ -150,15 +151,17 @@ def test_gc_after_starve_matches_flagless_decision(window):
     """GC flags recomputed from the pool rows (as K1 emits them) drive a
     sweep that frees the blocks it decides, at most max_gc_free_per_frame
     in window order, returns their heap ids and zeroes their rows."""
-    cfg, cam, st, slots, bpos, bptr = window
-    rows = I._block_rows(bptr)
+    cfg, cam, st, slots, bpos, bptr, bres = window
+    rows = I._block_rows(bptr)[0]
     w = st.pool.weight[rows]
     s = torch.where(w > 0, st.pool.sdf[rows].abs(), float("inf"))
-    min_s, max_w = s.amin(1), w.amax(1)
-    flags = (min_s, max_w.to(torch.float32))
+    flags = torch.stack([s.amin(1), w.amax(1).to(torch.float32),
+                         w.sum(1).to(torch.float32),
+                         st.pool.sumsq[rows].sum(1)], dim=1)
     free0 = st.table.high_count
     gcfg = MapConfig(**dict(CFG, sdf_truncation=0.0))   # frees every block
-    I.garbage_collect_sweep(gcfg, st.table, st.pool, cam, slots, flags)
+    decision, _ = I.window_decisions(gcfg, cam, flags, bres)
+    I.garbage_collect_sweep(gcfg, st.table, st.pool, slots, decision)
     n = min(len(slots), gcfg.max_gc_free_per_frame)
     assert st.table.high_count == free0 + n
     assert int(st.pool.weight[rows[:n]].abs().sum()) == 0
