@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Where the time of a LiDAR scan and of an online-GS frame goes, on one
-NVIDIA card; and an A/B of the RGB-D frame time against another checkout
-of the port.
+"""Where the time of a LiDAR scan, an online-GS frame, the multi-res
+frames and the streaming walk's frames goes, on one NVIDIA card; and an A/B
+of the RGB-D frame time against another checkout of the port.
 
     python3 chip_profile.py
     python3 chip_profile.py --gs
     python3 chip_profile.py --multires
+    python3 chip_profile.py --walk
     python3 chip_profile.py --rgbd-ab OTHER_ROOT
 
 The first form drives chip_smoke.py's LiDAR cell
@@ -36,6 +37,16 @@ at bench_lidar(multires=True)'s): the unprofiled frame time, median over
 and its share, launches and syncs per frame, the host and device ms of
 each stage range of the frame step (rgbd.* or points.*), and the kernels
 that take the most device time.
+The --walk form drives chip_smoke.py's phase 9 (tools/bench_walk.py's
+tube walk at 1200x680, 2^16 blocks): frames 0-149 to reach the stream
+watermark, frames 150-209 unprofiled (the frame time of the frames with
+a stream event, the trigger's own synchronized time, and the frame time
+by frames since the last event), then frames 210-239 under
+torch.profiler: device ms per frame and its share of the unprofiled
+frame, launches and syncs per frame, the host and device ms of the frame
+step's rgbd.* ranges per frame
+and of the streamer's stream.* ranges per stream event, and the kernels
+and copies that take the most device time.
 The last form times chip_smoke.py's RGB-D cell (120 frames of the
 box-room orbit at 1200x680, no mesh), each run in a fresh process, with
 the mrhash_tpu_torch of OTHER_ROOT (A) and of this checkout (B) in turns
@@ -256,6 +267,103 @@ def multires_profile(smi):
         torch.cuda.empty_cache()
 
 
+def walk_profile(smi):
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    depths = S.walk_depths()
+    rgb = np.random.default_rng(0).integers(0, 255, (S.ROWS, S.COLS, 3)
+                                            ).astype(np.uint8)
+    gw = S.make_walk_wrapper("cuda")
+    st = gw.streamer
+    warm, n_un, n = S.W_WARM, 60, 30
+
+    def frame(i):
+        S.walk_frame(gw, S.W_STEP * i, i, depths, rgb)
+
+    for i in range(warm):
+        frame(i)
+    # the trigger's own host time (synchronized), apart from the frame step
+    trigger = gw._stream
+    stream_ms = []
+
+    def timed_trigger():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trigger()
+        torch.cuda.synchronize()
+        stream_ms.append((time.perf_counter() - t0) * 1e3)
+    gw._stream = timed_trigger
+    ms, since = [], []
+    last = None
+    for i in range(warm, warm + n_un):
+        k = len(st.out_events)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame(i)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if len(st.out_events) > k:
+            last = i
+        since.append(None if last is None else i - last)
+    gw._stream = trigger
+    wall = statistics.fmean(ms)
+    ev_ms = [m for m, d in zip(ms, since) if d == 0]
+    print(f"walk, frames {warm}-{warm + n_un - 1}: mean {wall:.3f} ms; "
+          f"frames with a stream event {[round(m, 3) for m in ev_ms]} ms, "
+          f"of which the trigger (stream out + in, synchronized) "
+          f"{[round(m, 3) for m in stream_ms]} ms [{smi}]", flush=True)
+    by = {}
+    for m, d in zip(ms, since):
+        if d is not None:
+            by.setdefault(min(d, 6), []).append(m)
+    print("  frame ms by frames since the last stream event (6 = 6 or "
+          "more): " + ", ".join(f"{d}: median {statistics.median(v):.3f} "
+                                f"({len(v)})" for d, v in sorted(by.items())),
+          flush=True)
+
+    k0 = len(st.out_events)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(warm + n_un, warm + n_un + n):
+            frame(i)
+        torch.cuda.synchronize()
+        st.join()
+    n_ev = len(st.out_events) - k0
+    ka = prof.key_averages()
+
+    def dev_us(e):
+        return _dev_us(e, "self_device_time_total")
+
+    on_device = [e for e in ka if e.device_type != DeviceType.CPU
+                 and not e.key.startswith(("rgbd.", "stream."))]
+    device_ms = sum(dev_us(e) for e in on_device) / 1e3 / n
+    count = {e.key: e.count for e in ka}
+    launches = sum(count.get(k, 0) for k in ("cudaLaunchKernel",
+                                             "cuLaunchKernel",
+                                             "cudaLaunchKernelExC"))
+    syncs = sum(c for k, c in count.items() if "Synchronize" in k)
+    print(f"profiler, frames {warm + n_un}-{warm + n_un + n - 1} ({n_ev} "
+          f"stream events) [{smi}]: device {device_ms:.3f} ms/frame, busy "
+          f"{device_ms / wall:.4f} of the unprofiled mean frame, "
+          f"{launches / n:.1f} launches and {syncs / n:.1f} syncs per frame")
+    print("  rgbd.* (host ms/frame under the profiler, device ms/frame):")
+    for name, (host, dev) in stage_times(prof, n, "rgbd.").items():
+        print(f"    {name}: host {host:.3f}, device {dev:.3f}")
+    print("  stream.* (host ms/event under the profiler, device ms/event):")
+    for name, (host, dev) in stage_times(prof, max(n_ev, 1),
+                                         "stream.").items():
+        print(f"    {name}: host {host:.3f}, device {dev:.3f}")
+    for e in st.out_events[k0:]:
+        print("  event: " + ", ".join(f"{k} {v:.3f}" if isinstance(v, float)
+                                      else f"{k} {v}" for k, v in e.items()))
+    for e in sorted(on_device, key=dev_us, reverse=True)[:10]:
+        print(f"    {dev_us(e) / n / 1e3:.4f} ms/frame  x{e.count / n:<6.1f} "
+              f"{e.key[:90]}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -277,6 +385,8 @@ def main():
         return gs_profile(smi)
     if sys.argv[1:] == ["--multires"]:
         return multires_profile(smi)
+    if sys.argv[1:] == ["--walk"]:
+        return walk_profile(smi)
     rng = np.random.default_rng(0)
     clouds = [S.lidar_cloud(S.lidar_pose(i), rng) for i in range(S.L_FRAMES)]
 

@@ -6,25 +6,26 @@ card.
 
 Phases (any failure raises: non-zero exit, no result line):
   1. probe   — CUDA present; device, CUDA runtime, nvidia-smi, nvcc;
-  2. build   — compile the kernels K1-K5 from mrhash_tpu_torch/csrc (one
+  2. build   — compile the kernels K1-K6 from mrhash_tpu_torch/csrc (one
                nvcc per source, started together);
   3. compare — each kernel against its plain PyTorch twin on the inputs its
                path gives it (K1, K2: the RGB-D path after 40 frames at
-               1200x680; K1's res-1 path: the multi-res RGB-D path after 40
-               frames; K3 and its res-1 path: the LiDAR path, one
-               resolution and multi-res, after 20 scans at 64x1024; K4,
-               K5: the GS training render of frame 1 of phase 6's scene,
-               1200x680, K = 64), then timed in turns (twin, kernel,
-               library, library, kernel, twin) by CUDA-graph replay and
-               CUDA events; and each whole slice (RGB-D at one resolution
-               and multi-res, LiDAR, GS) on the card against the same
-               slice on the CPU on a small scene, and the full-size quad
-               tree of phase 6's frame 0;
+               1200x680; K6, which no path calls: the same starvation
+               readback's frame and lanes as a 5-channel bf16 image with
+               per-block patch origins; K1's res-1 path: the multi-res
+               RGB-D path after 40 frames; K3 and its res-1 path: the LiDAR
+               path, one resolution and multi-res, after 20 scans at
+               64x1024; K4, K5: the GS training render of frame 1 of phase
+               6's scene, 1200x680, K = 64), then timed in turns (twin,
+               kernel, library, library, kernel, twin) by CUDA-graph replay
+               and CUDA events; and each whole slice (RGB-D at one
+               resolution and multi-res, LiDAR, GS, streaming) on the card
+               against the same slice on the CPU on a small scene, and the
+               full-size quad tree of phase 6's frame 0;
   4. RGB-D   — GeoWrapper(device="cuda") at replica.cfg's settings, 120
                frames of bench.py's box-room orbit (starvation fires on
                frame 100), with the kernels' launch counts taken over that
-               run only; then streamAllOut + extractMesh to a temporary PLY,
-               whose vertices must lie on the room's walls;
+               run only; then streamAllOut (phase 9 meshes this path);
   5. LiDAR   — GeoWrapper(device="cuda") at newer_college.cfg's settings, 40
                scans of a 64x1024 sensor driving 0.5 m per scan past a
                ground plane and a 25 m cylinder wall, with K3's launch
@@ -47,7 +48,16 @@ Phases (any failure raises: non-zero exit, no result line):
                the mesh on the walls;
   8. multi-res LiDAR — phase 5 at bench_lidar(multires=True)'s settings
                (sdf_var_threshold 1.0, 512 coarsenings per scan): scans/s,
-               res-1 blocks, K3's res-0 and res-1 launches; then the mesh.
+               res-1 blocks, K3's res-0 and res-1 launches; then the mesh;
+  9. streaming walk — tools/bench_walk.py's settings (1200x680, 1 cm, max
+               depth 4 m, 2^16 blocks): 150 + 120 frames down the 1.5 m
+               square tube at 8 cm/frame, so the watermark fires and the
+               farthest blocks stream to the host grid; FPS over the last
+               120 frames with the stream events, per-event milliseconds,
+               K1's and K2's launches; then 40 frames back, turned around
+               (stream-in), the duplicate ratio, extractMesh over grid +
+               device (vertices on the tube's walls), streamAllOut and a
+               serializeGrid -> deserializeGrid round trip.
 After the runs no jax and no mrhash_tpu module may be loaded.  The last
 lines are the kernels' JSON record (K1 and K3 with res1_* figures beside
 their res-0 ones), the card's name and power limit, and
@@ -93,6 +103,13 @@ GS_TRAIN_ITERS = 60
 GS_MORE_FRAMES = 10
 GS_PSNR_REF = dict(train=23.99, holdout=28.27)   # BENCH_GS.json, quality
 GS_K = 64                       # train_max_per_tile
+
+# streaming walk: tools/bench_walk.py (1200x680, 1 cm, 2^16 blocks)
+W_HALF, W_STEP, W_MAXD = 1.5, 0.08, 4.0   # tube half side, m/frame, m
+W_BLOCKS = 1 << 16
+W_WARM, W_TIMED = 150, 120
+W_BACK, W_BACK_STEP = 40, 0.25            # the walk back, turned around
+W_SMALL = dict(fwd=80, back=40, step=0.3)  # phase 3's 64x256 walk
 
 
 def log(*a):
@@ -384,7 +401,80 @@ def compare_kernels(depths, rgb):
     # two-channel image read once; ~2 integer operations per lane
     lanes = A * 512
     k2 = kernel_record(t, k2_err, lanes * 17 + 2 * HW * 4, lanes * 2)
-    return k1, k2
+    k6 = compare_sample5(pc_depth, rgb, row, col, ok, sk[:, 1])
+    return k1, k2, k6
+
+
+def compare_sample5(depth, rgb, row, col, ok, k2_depth):
+    """K6 (B6's 5-channel sampler, which no path calls) on the starvation
+    readback's inputs: the frame as bf16 (depth hi, depth lo, r, g, b),
+    each block's 8- and 128-aligned minimum pixel as its patch origin and
+    the lanes' offsets from it (-1 where K2's lane is masked).  K6 equal to
+    its twin exactly; hi + lo within 2^-16 relative of K2's depth and r, g,
+    b equal to the frame's on in-patch lanes."""
+    import torch
+
+    from mrhash_tpu_torch.ops import sample_image as SI
+
+    dev = depth.device
+    H, W = depth.shape
+    d_hi = depth.to(torch.bfloat16)
+    d_lo = (depth - d_hi.to(torch.float32)).to(torch.bfloat16)
+    rgb_t = torch.from_numpy(rgb).to(dev)
+    img5 = torch.cat([d_hi[None], d_lo[None],
+                      rgb_t.permute(2, 0, 1).to(torch.bfloat16)]).contiguous()
+    A = row.shape[0]
+    A8 = -(-A // 8) * 8
+    big = torch.iinfo(torch.int32).max
+    r0 = torch.where(ok, row, big).amin(dim=1)
+    c0 = torch.where(ok, col, big).amin(dim=1)
+    r0 = torch.where(r0 == big, 0, r0) // 8 * 8
+    c0 = torch.where(c0 == big, 0, c0) // 128 * 128
+    lr = torch.where(ok, row - r0[:, None], -1)
+    lc = torch.where(ok, col - c0[:, None], -1)
+
+    def pad(t, fill):
+        out = torch.full((A8,) + tuple(t.shape[1:]), fill, dtype=torch.int32,
+                         device=dev)
+        out[:A] = t
+        return out
+
+    r0, c0, lr, lc = pad(r0, 0), pad(c0, 0), pad(lr, -1), pad(lc, -1)
+    k = SI.sample_image5(img5, r0, c0, lr, lc)
+    t_ = SI.sample_image5_ref(img5, r0, c0, lr, lc)
+    torch.cuda.synchronize()
+    err = float((k - t_).abs().max())
+    assert torch.equal(k, t_), "K6 differs from its twin"
+    own = ((r0 <= H - 32) & (c0 <= W - 256))[:A, None]
+    inp = ok & own & (lr[:A] < 32) & (lc[:A] < 256)
+    inp = inp & (k2_depth > 0)
+    dep = k[:A, 0] + k[:A, 1]
+    rel = float(((dep - k2_depth).abs() / k2_depth)[inp].max())
+    rgb_lane = rgb_t[row.clamp(0, H - 1), col.clamp(0, W - 1)]
+    rgb_ok = bool((k[:A, 2:5].permute(0, 2, 1) == rgb_lane.to(torch.float32)
+                   )[inp].all())
+    n_in = int(inp.sum())
+    log(f"compare K6: {A8} blocks, {n_in} in-patch lanes of "
+        f"{int(ok.sum())}, max |diff| {err}; hi + lo vs K2's depth max rel "
+        f"{rel:.3e}; rgb equal {rgb_ok}")
+    assert n_in > 100000 and rel <= 2.0 ** -16 and rgb_ok, (n_in, rel)
+    # one PyTorch call that does K6's gather: torch.take over the same flat
+    # index into the five channels (built outside the timing; the call
+    # neither masks nor widens to f32)
+    in_rng = (lr >= 0) & (lr < 32) & (lc >= 0) & (lc < 256)
+    flat = torch.where(in_rng, (r0.clamp(0, H - 32)[:, None] + lr) * W
+                       + c0.clamp(0, W - 256)[:, None] + lc, 0).long()
+    idx = flat[:, None, :] + torch.arange(5, device=dev)[None, :, None] * H * W
+    t = time_in_turns(lambda: SI._launch5(img5, r0, c0, lr, lc),
+                      lambda: SI.sample_image5_ref(img5, r0, c0, lr, lc),
+                      lambda: torch.take(img5, idx))
+    # lr, lc (8 B) read and 8 channels (32 B) written per lane; r0, c0 per
+    # block; the bf16 image read once; ~10 integer operations per lane
+    lanes = A8 * 512
+    rec = kernel_record(t, err, lanes * 40 + A8 * 8 + 5 * H * W * 2,
+                        lanes * 10)
+    rec.update(blocks=A8, in_patch=n_in)
+    return rec
 
 
 def compare_k1_res1(depths, rgb):
@@ -447,14 +537,12 @@ def compare_k1_res1(depths, rgb):
 def host_map(st, cfg):
     """The map's blocks in the host layout (a res-1 block's window at lanes
     [0, 64)), sorted by key: (pos, res, {field: [S,512]})."""
-    import numpy as np
-
-    from mrhash_tpu_torch.core.streaming import Streamer
-    _, pos, res, sdf, ssq, w, rgb = Streamer(cfg)._occupied_to_host(st)
-    order = np.lexsort(pos.T)
-    return pos[order], res[order], {
-        f: a[order] for f, a in
-        (("sdf", sdf), ("sumsq", ssq), ("weight", w), ("rgbp", rgb))}
+    from mrhash_tpu_torch.core.streaming import ChunkGrid, Streamer
+    grid = ChunkGrid(cfg.voxel_extents)
+    Streamer(cfg, cfg.num_blocks).snapshot_into(st, grid)
+    g = host_grid(grid.chunks)
+    return g["pos"], g["res"], dict(sdf=g["sdf"], sumsq=g["ssq"],
+                                    weight=g["w"], rgbp=g["rgb"])
 
 
 def compare_small_scene(multires=False):
@@ -931,6 +1019,263 @@ def compare_blend_kernels(train, rows=ROWS, cols=COLS):
 
 
 # ---------------------------------------------------------------------------
+# streaming walk: tools/bench_walk.py's square tube, in numpy
+# ---------------------------------------------------------------------------
+
+def tube_depth(off_x, off_y, rows=ROWS, cols=COLS, f=FX):
+    """tools/bench_walk.py::tube_depth: z-depth of the square tube |x| =
+    |y| = W_HALF seen from (off_x, off_y, z) looking along z (0 beyond
+    W_MAXD), principal point at the image centre."""
+    import numpy as np
+    u = (np.arange(cols, dtype=np.float32)[None, :] - (cols / 2 - 0.5)) / f
+    v = (np.arange(rows, dtype=np.float32)[:, None] - (rows / 2 - 0.5)) / f
+    big = np.float32(1e9)
+
+    def t_plane(d, o, w):
+        tp = np.where(d > 1e-6, (w - o) / np.maximum(d, 1e-6), big)
+        tm = np.where(d < -1e-6, (-w - o) / np.minimum(d, -1e-6), big)
+        return np.minimum(tp, tm)
+
+    z = np.minimum(t_plane(np.broadcast_to(u, (rows, cols)), off_x, W_HALF),
+                   t_plane(np.broadcast_to(v, (rows, cols)), off_y, W_HALF))
+    return np.where(z < W_MAXD, z, 0.0).astype(np.float32)
+
+
+def walk_offsets():
+    """bench_walk's 8 lateral camera offsets, cycled over the frames."""
+    import numpy as np
+    return [(0.1 * np.sin(k), 0.05 * np.cos(k))
+            for k in np.linspace(0, 2 * np.pi, 8, endpoint=False)]
+
+
+def make_walk_wrapper(device, rows=ROWS, cols=COLS, f=FX,
+                      num_blocks=W_BLOCKS, vvs=0.01, trunc=0.07):
+    """The port's GeoWrapper at tools/bench_walk.py's settings: 1 cm
+    voxels, 7 cm truncation, starvation every 100 frames, max depth 4 m,
+    2^16 blocks, 2^14 buckets, window cap 2^15, 2^13 allocations per
+    frame (its starve_bands=8 is P3's one-shot starvation)."""
+    from mrhash_tpu_torch.geowrapper import GeoWrapper
+    gw = GeoWrapper(sdf_truncation=trunc, sdf_truncation_scale=0.0,
+                    integration_weight_sample=1, virtual_voxel_size=vvs,
+                    n_frames_invalidate_voxels=100, voxel_extents_scale=1,
+                    gs_optimization_param_path="", num_blocks=num_blocks,
+                    num_buckets=num_blocks >> 2,
+                    max_active_blocks=num_blocks >> 1,
+                    max_alloc_per_frame=1 << 13, profiling=False,
+                    device=device)
+    gw.setCamera(f, f, cols / 2 - 0.5, rows / 2 - 0.5, rows, cols, 0.01,
+                 W_MAXD)
+    return gw
+
+
+def walk_frame(gw, z, k, depths, rgb, back=False):
+    """One frame of the walk at depth z along the tube with offset k of
+    walk_offsets(); back=True turns the camera around (a half turn about
+    y, which mirrors the image's x)."""
+    import numpy as np
+    ox, oy = walk_offsets()[k % 8]
+    if back:
+        gw.setCurrPose([ox, oy, z], [0.0, 1.0, 0.0, 0.0])
+        gw.setDepthImage(np.ascontiguousarray(depths[k % 8][:, ::-1]))
+    else:
+        gw.setCurrPose([ox, oy, z], [0.0, 0.0, 0.0, 1.0])
+        gw.setDepthImage(depths[k % 8])
+    gw.setRGBImage(rgb)
+    gw.compute()
+
+
+def walk_depths(rows=ROWS, cols=COLS, f=FX):
+    """The 8 depth variants (bench_walk's canned frames), each rendered
+    from its own offset; a turned camera uses the mirrored image."""
+    return [tube_depth(ox, oy, rows, cols, f) for ox, oy in walk_offsets()]
+
+
+def host_grid(chunks):
+    """A host chunk grid's blocks, concatenated and sorted by key: {pos,
+    res, sdf, ssq, w, rgb}."""
+    import numpy as np
+    groups = list(chunks.values())
+    cat = {k: np.concatenate([g[k] for g in groups]) for k in groups[0]}
+    order = np.lexsort(cat["pos"].T)
+    return {k: v[order] for k, v in cat.items()}
+
+
+def compare_small_walk():
+    """The streaming slice on the card against the slice on the CPU (where
+    the tests hold it against the JAX reference): a 64x256 walk 24 m down
+    the tube and 12 m back, turned around, through GeoWrapper with 2^11
+    blocks of 2 cm voxels, so that the watermark fires on the way out and
+    stream-in reloads blocks on the way back; the same stream events, and
+    after streamAllOut the host grids hold the same keys and resolutions,
+    weight and rgb equal, sdf within 2e-5, sumsq within 5e-4."""
+    import numpy as np
+    rows, cols, f, w = 64, 256, 160.0, W_SMALL
+    depths = walk_depths(rows, cols, f)
+    rgb = np.random.default_rng(1).integers(0, 255, (rows, cols, 3)
+                                            ).astype(np.uint8)
+    grids, events = {}, {}
+    for dev in ("cpu", "cuda"):
+        gw = make_walk_wrapper(dev, rows, cols, f, num_blocks=1 << 11,
+                               vvs=0.02, trunc=0.06)
+        for i in range(w["fwd"]):
+            walk_frame(gw, w["step"] * i, i, depths, rgb)
+        z0 = w["step"] * (w["fwd"] - 1)
+        for k in range(1, w["back"] + 1):
+            walk_frame(gw, z0 - w["step"] * k, k, depths, rgb, back=True)
+        st = gw.streamer
+        events[dev] = ([e["blocks"] for e in st.out_events],
+                       [e["inserted"] for e in st.in_events])
+        gw.streamAllOut()
+        grids[dev] = host_grid(gw.streamer.grid.chunks)
+    c, g = grids["cpu"], grids["cuda"]
+    assert events["cpu"] == events["cuda"], events
+    out, ins = events["cpu"]
+    assert len(out) >= 2 and sum(ins) > 0, events
+    assert np.array_equal(c["pos"], g["pos"]), "host grid key sets differ"
+    assert np.array_equal(c["res"], g["res"])
+    for k in ("w", "rgb"):
+        assert np.array_equal(c[k], g[k]), k
+    upd = c["w"] > 0
+    err = {k: float(np.abs(c[k][upd] - g[k][upd]).max()) for k in
+           ("sdf", "ssq")}
+    log(f"compare streaming slice cuda vs cpu ({rows}x{cols}, "
+        f"{w['fwd']} + {w['back']} frames): {len(out)} stream-outs of "
+        f"{out} blocks, {sum(ins)} blocks streamed in, {len(c['pos'])} "
+        f"blocks in the grid, {int(upd.sum())} weighted voxels, max |diff| "
+        f"{err}")
+    assert int(upd.sum()) > 10000
+    assert err["sdf"] <= TOL["sdf"] and err["ssq"] <= TOL["sumsq"], err
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the streaming walk
+# ---------------------------------------------------------------------------
+
+def run_walk(device="cuda", rows=ROWS, cols=COLS, f=FX, warm=W_WARM,
+             timed=W_TIMED, back=W_BACK):
+    """Phase 9: tools/bench_walk.py's walk through GeoWrapper.compute,
+    warm + timed frames down the tube at 8 cm/frame (the watermark fires
+    and the farthest blocks stream to the host grid), then `back` frames
+    turned around, walking back (stream-in reloads the chunks near the
+    camera).  Then the duplicate ratio, extractMesh over grid + device
+    (vertices on the tube's walls), streamAllOut, and a serializeGrid ->
+    deserializeGrid round trip into a fresh wrapper.  Returns (launches,
+    numbers)."""
+    import numpy as np
+    import torch
+
+    from mrhash_tpu_torch.ops import fused_integrate as FI
+    from mrhash_tpu_torch.ops import sample_image as SI
+
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    depths = walk_depths(rows, cols, f)
+    rgb = np.random.default_rng(0).integers(0, 255, (rows, cols, 3)
+                                            ).astype(np.uint8)
+    gw = make_walk_wrapper(device, rows, cols, f)
+    st = gw.streamer
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    FI.launch_count = FI.res1_launch_count = SI.launch_count = 0
+    frame_ms, n_events = [], []
+    for i in range(warm + timed):
+        t0 = time.perf_counter()
+        walk_frame(gw, W_STEP * i, i, depths, rgb)
+        sync()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        n_events.append(len(st.out_events))
+    launches = {"fused_integrate_rows": FI.launch_count,
+                "fused_integrate_rows_res1": FI.res1_launch_count,
+                "sample_image": SI.launch_count}
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    st.join()
+    events = list(st.out_events)
+    timed_ev = events[n_events[warm - 1]:]
+    fps = timed / (sum(frame_ms[warm:]) / 1e3)
+    grid_blocks = st.grid.num_blocks()
+    log(f"walk: {warm + timed} frames, launches {launches}; stream-outs "
+        f"{len(events)} ({len(timed_ev)} in the timed window), blocks per "
+        f"event {[e['blocks'] for e in events]}")
+    for name in ("plan_ms", "gather_ms", "d2h_ms", "ingest_ms"):
+        v = [e[name] for e in events]
+        log(f"walk: per event {name}: median {statistics.median(v):.3f}, "
+            f"max {max(v):.3f}")
+    # frames whose compute() streamed (the trigger runs before the frame's
+    # integrate) against the others
+    ev_ms = [frame_ms[i] for i in range(warm, warm + timed)
+             if n_events[i] > n_events[i - 1]]
+    plain_ms = [frame_ms[i] for i in range(warm, warm + timed)
+                if n_events[i] == n_events[i - 1]]
+    log(f"walk: frames {warm}-{warm + timed - 1}: FPS {fps:.2f} (stream "
+        f"events included), median {statistics.median(frame_ms[warm:]):.3f} "
+        f"ms, max {max(frame_ms[warm:]):.3f} ms; frames with a stream event "
+        f"median {statistics.median(ev_ms or [0.0]):.3f} ms ({len(ev_ms)}), "
+        f"without {statistics.median(plain_ms):.3f} ms; host grid "
+        f"{grid_blocks} blocks; high_free {gw.state.table.high_count}; peak "
+        f"device memory {peak / 2**30:.3f} GiB")
+    if cuda:
+        assert launches["fused_integrate_rows"] == warm + timed, launches
+        assert launches["sample_image"] >= 1, launches
+    assert len(timed_ev) >= 1, "no stream-out in the timed window"
+
+    # the walk back, turned around: the camera nears the streamed-out tube
+    z0 = W_STEP * (warm + timed - 1)
+    n_in = len(st.in_events)
+    for k in range(1, back + 1):
+        walk_frame(gw, z0 - W_BACK_STEP * k, k, depths, rgb, back=True)
+    sync()
+    ins = st.in_events[n_in:]
+    streamed_in = sum(e["inserted"] for e in ins)
+    dup = st.duplicate_ratio(gw.state)
+    log(f"walk back: {back} frames, {len(ins)} stream events, "
+        f"{streamed_in} blocks streamed in ({sum(e['popped'] for e in ins)} "
+        f"popped, {sum(e['kept'] for e in ins)} kept in RAM); duplicate "
+        f"ratio {dup:.4f}")
+    assert streamed_in > 0, "nothing streamed in on the walk back"
+    assert dup < 0.15, dup
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        gw.extractMesh(os.path.join(tmp, "mesh.ply"))
+    mesh_s = time.perf_counter() - t0
+    v = gw.getVertices()
+    on = np.minimum(np.abs(np.abs(v[:, 0]) - W_HALF),
+                    np.abs(np.abs(v[:, 1]) - W_HALF)) < 0.03
+    log(f"walk mesh (grid + device): {v.shape[0]} vertices, "
+        f"{float(on.mean()):.4f} within 3 cm of the tube's walls "
+        f"({mesh_s:.1f} s)")
+    assert v.shape[0] > 10000 and np.isfinite(v).all(), v.shape
+    assert on.mean() > 0.95, float(on.mean())
+
+    gw.streamAllOut()
+    assert int((gw.state.table.ptr != -2).sum()) == 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "grid.npz")
+        gw.serializeGrid(path)
+        fresh = make_walk_wrapper(device, rows, cols, f)
+        fresh.deserializeGrid(path)
+    ckpt_s = time.perf_counter() - t0
+    a, b = (host_grid(g.streamer.grid.chunks) for g in (gw, fresh))
+    assert all(np.array_equal(a[k], b[k]) for k in a), "checkpoint differs"
+    assert (set(gw.streamer.grid.chunks)
+            == set(fresh.streamer.grid.chunks))
+    log(f"walk checkpoint: {len(a['pos'])} blocks in "
+        f"{len(gw.streamer.grid.chunks)} chunks, serializeGrid + "
+        f"deserializeGrid {ckpt_s:.1f} s, equal")
+    return launches, dict(fps=fps, events=len(events),
+                          timed_events=len(timed_ev), streamed_in=streamed_in,
+                          dup=dup, grid_blocks=grid_blocks,
+                          peak_gib=peak / 2**30, mesh_s=mesh_s,
+                          on_wall=float(on.mean()))
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the RGB-D path
 # ---------------------------------------------------------------------------
 
@@ -940,10 +1285,11 @@ def res1_blocks(gw):
     return int(((t.res == 1) & (t.ptr != -2)).sum())
 
 
-def run_slice(depths, rgb, multires=False):
+def run_slice(depths, rgb, multires=False, mesh=True):
     """Phase 4 (or 7 with multires): N_FRAMES frames of the box-room orbit
-    through GeoWrapper.compute, then streamAllOut + extractMesh.  Returns
-    (launches of K1's paths and K2 over the frames, numbers)."""
+    through GeoWrapper.compute, then streamAllOut and, with `mesh`,
+    extractMesh.  Returns (launches of K1's paths and K2 over the frames,
+    numbers)."""
     import numpy as np
     import torch
 
@@ -989,8 +1335,18 @@ def run_slice(depths, rgb, multires=False):
         assert launches["fused_integrate_rows"] == N_FRAMES, launches
         assert launches["fused_integrate_rows_res1"] == 0, launches
 
+    numbers = dict(median_ms=statistics.median(steady),
+                   fps=1e3 / statistics.fmean(steady), peak_gib=peak / 2**30,
+                   res1_blocks=n1, res0_window=stats["res0_blocks"])
     t0 = time.perf_counter()
     gw.streamAllOut()
+    n_grid = gw.streamer.grid.num_blocks()
+    assert n_grid == stats["occupied_total"], (n_grid, stats)
+    if not mesh:
+        log(f"{tag}: streamAllOut {n_grid} blocks in "
+            f"{time.perf_counter() - t0:.1f} s (no mesh: phase 9 meshes "
+            "this single-res 1 cm path)")
+        return launches, numbers
     with tempfile.TemporaryDirectory() as tmp:
         gw.extractMesh(os.path.join(tmp, "mesh.ply"))
     mesh_s = time.perf_counter() - t0
@@ -1004,10 +1360,7 @@ def run_slice(depths, rgb, multires=False):
     on_wall = float((wall < 0.03).mean())
     log(f"{tag} mesh: {on_wall:.4f} of vertices within 3 cm of a wall")
     assert on_wall > 0.95, on_wall
-    return launches, dict(median_ms=statistics.median(steady),
-                          fps=1e3 / statistics.fmean(steady),
-                          peak_gib=peak / 2**30, res1_blocks=n1,
-                          res0_window=stats["res0_blocks"], mesh_s=mesh_s)
+    return launches, dict(numbers, mesh_s=mesh_s)
 
 
 # ---------------------------------------------------------------------------
@@ -1246,13 +1599,17 @@ def main():
     compare_small_scene(multires=True)
     compare_small_lidar()
     compare_small_gs()
+    compare_small_walk()
     compare_qtree(train[0]["rgb"])
-    k1, k2 = compare_kernels(depths, rgb)
+    k1, k2, k6 = compare_kernels(depths, rgb)
     torch.cuda.empty_cache()
     log(f"compare: K1 {k1['ms']:.4f} ms (twin {k1['plain_ms']:.4f} ms, "
         f"bound {k1['bound_ms']:.4f} ms) over {k1['window_blocks']} blocks; "
         f"K2 {k2['ms']:.4f} ms (twin {k2['plain_ms']:.4f} ms, torch.take "
         f"{k2['library_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms) [{smi}]")
+    log(f"compare: K6 {k6['ms']:.4f} ms (twin {k6['plain_ms']:.4f} ms, "
+        f"torch.take {k6['library_ms']:.4f} ms, bound {k6['bound_ms']:.4f} "
+        f"ms, {k6['bytes']} B) over {k6['blocks']} blocks [{smi}]")
     k1r = compare_k1_res1(depths, rgb)
     torch.cuda.empty_cache()
     log(f"compare: K1 res-1 {k1r['ms']:.4f} ms (twin {k1r['plain_ms']:.4f} "
@@ -1277,8 +1634,9 @@ def main():
             f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}, {k['bytes']} "
             f"B) over {k['tiles']} tiles x K {k['K']} [{smi}]")
 
-    # 4. the RGB-D path
-    launches, run = run_slice(depths, rgb)
+    # 4. the RGB-D path (its mesh is left to phase 9, which meshes the
+    # same single-res 1 cm path over the host grid and the device)
+    launches, run = run_slice(depths, rgb, mesh=False)
     log(f"run: {run['fps']:.2f} FPS, median {run['median_ms']:.3f} ms/frame, "
         f"peak {run['peak_gib']:.3f} GiB [{smi}]")
     torch.cuda.empty_cache()
@@ -1315,6 +1673,16 @@ def main():
         f"{mlrun['median_ms']:.3f} ms/scan, {mlrun['res1_blocks']} res-1 "
         f"blocks, peak {mlrun['peak_gib']:.3f} GiB, K3 launches "
         f"{ml_launches} [{smi}]")
+    torch.cuda.empty_cache()
+
+    # 9. the streaming walk
+    w_launches, wrun = run_walk()
+    log(f"walk: {wrun['fps']:.2f} FPS with {wrun['timed_events']} stream "
+        f"events in the timed window ({wrun['events']} in all), "
+        f"{wrun['streamed_in']} blocks streamed in on the walk back, "
+        f"duplicate ratio {wrun['dup']:.4f}, peak {wrun['peak_gib']:.3f} GiB, "
+        f"mesh {wrun['on_wall']:.4f} on the walls, K1/K2 launches "
+        f"{w_launches} [{smi}]")
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "mrhash_tpu"))
@@ -1338,10 +1706,12 @@ def main():
             ("blend_forward", "blend_tiles.cu",
              "mrhash_tpu/gs/blend_pallas.py:70", k4),
             ("blend_backward", "blend_tiles.cu",
-             "mrhash_tpu/gs/blend_pallas.py:110", k5)):
+             "mrhash_tpu/gs/blend_pallas.py:110", k5),
+            ("sample_image5", "sample_image.cu",
+             "mrhash_tpu/ops/pallas_kernels.py:44", k6)):
         entry = dict(
             name=name, route="cuda", source="mrhash_tpu_torch/csrc/" + src,
-            replaces=replaces, launches=launches[name],
+            replaces=replaces, launches=launches.get(name, 0),
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")})
         if name in res1:
@@ -1353,6 +1723,12 @@ def main():
                     **{"res1_" + k: r[k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by")})
+        if name == "sample_image5":
+            entry["launches_note"] = (
+                "no path launches K6: nothing in the JAX package calls "
+                "B6 (sample_image_pallas_v2, marked EXPERIMENT, NOT USED)")
+        if name in w_launches:
+            entry["walk_launches"] = w_launches[name]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

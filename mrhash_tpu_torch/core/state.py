@@ -148,6 +148,15 @@ class MapConfig:
     #                                          decide again next frame
     low_split_chunk: int = 1 << 10           # high blocks split per refill
 
+    def __post_init__(self):
+        # weights are u8 in the host layout and the checkpoint: the
+        # reference clips them to 255 in every stream-out pack and clamps
+        # this cap at its setter; the port rejects a larger cap once, here
+        # (PORT_NOTES.md P35)
+        if not 0 < self.integration_weight_max <= 255:
+            raise ValueError("integration_weight_max must lie in [1, 255], "
+                             f"got {self.integration_weight_max}")
+
     @property
     def metric_block_size(self) -> float:
         return P.SDF_BLOCK_SIZE * self.virtual_voxel_size

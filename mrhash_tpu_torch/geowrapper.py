@@ -6,14 +6,17 @@ paths, at one resolution or with variance-adaptive multi-resolution
 (sdf_var_threshold > 0: low-variance blocks coarsen to 4^3 blocks at twice
 the voxel spacing): setCamera / setCurrPose / setDepthImage + setRGBImage
 or setPointCloud / compute, then streamAllOut / extractMesh /
-serializeData / clearBuffers; with a gs_optimization_param_path, online 3D
-Gaussian Splatting after each RGB-D frame, then GSFinalOpt /
-GSSavePointCloud.  Every frame runs eagerly on `device` ("cuda" by
-default).  Out of these slices, and raising instead of skipping: the
-non-projective LiDAR update (projective_sdf=False) and starvation under
-the spherical model (n_frames_invalidate_voxels > 0 with a spherical
-camera), the viewer thread, and streaming triggered by the heap watermark
-(ROADMAP A8).
+serializeData / serializeGrid / deserializeGrid / clearBuffers; with a
+gs_optimization_param_path, online 3D Gaussian Splatting after each RGB-D
+frame, then GSFinalOpt / GSSavePointCloud.  Every frame runs eagerly on
+`device` ("cuda" by default).  When the free high heap falls to the
+stream watermark, compute() first streams the farthest blocks to the host
+chunk grid and reloads the host chunks near the camera (core/streaming.py),
+so a scene larger than the device pool keeps integrating.  Out of these
+slices, and raising instead of skipping: the non-projective LiDAR update
+(projective_sdf=False), starvation under the spherical model
+(n_frames_invalidate_voxels > 0 with a spherical camera) and the viewer
+thread.
 """
 from __future__ import annotations
 
@@ -104,6 +107,10 @@ class GeoWrapper:
             num_blocks = int(to_alloc * P.SDF_BLOCKS_RATIO
                              / (P.VOXEL_NBYTES * P.TOTAL_SDF_BLOCK_SIZE))
             num_blocks = min(_round_up_pow2(num_blocks), 1 << 20)
+        # blocks one stream pass moves (geowrapper.cpp:48-56)
+        staging = int(to_alloc * P.SDF_BLOCKS_STREAM_RATIO
+                      / (P.VOXEL_NBYTES * P.TOTAL_SDF_BLOCK_SIZE))
+        staging = min(max(_round_up_pow2(staging), 1 << 10), num_blocks)
         if max_active_blocks is None:
             max_active_blocks = min(num_blocks, 1 << 17)
         self.cfg = MapConfig(
@@ -125,7 +132,7 @@ class GeoWrapper:
             max_alloc_per_frame=int(max_alloc_per_frame))
         self.state = make_state(self.cfg.num_blocks,
                                 self.cfg.num_buckets or None, self.device)
-        self.streamer = Streamer(self.cfg)
+        self.streamer = Streamer(self.cfg, staging)
         self.mesh = mesh_post.MeshAccumulator(vertices_merging_threshold)
         self.gs_container = None
         if gs_optimization_param_path:
@@ -145,6 +152,7 @@ class GeoWrapper:
         self.last_stats = None
         self.integration_profiler = Profiler("integration_profiler",
                                              profiling)
+        self.streaming_profiler = Profiler("streamer_profiler", profiling)
 
     # ------------------------------------------------------------------ inputs
     def setCamera(self, fx, fy, cx, cy, rows, cols, min_depth, max_depth,
@@ -223,10 +231,7 @@ class GeoWrapper:
     def compute(self):
         """Per-frame step (geowrapper.cpp:118-148)."""
         if self._high_free <= P.STREAM_THRESHOLD * self.cfg.num_blocks:
-            raise NotImplementedError(
-                f"GeoWrapper.compute: {self._high_free} free blocks of "
-                f"{self.cfg.num_blocks} reached the stream-out watermark; "
-                "streaming is not ported yet (ROADMAP A8) — raise num_blocks")
+            self._stream()
         # setPointCloud and setDepthImage each clear the other's input
         lidar = self._points is not None
         if not lidar and (self._depth_img is None or self._rgb_img is None):
@@ -248,6 +253,32 @@ class GeoWrapper:
             # the GS step consumes the device copies of this frame
             self.gs_container.run_gs(self.cfg, cam, self.state, rgb, depth)
 
+    def _stream(self):
+        """The stream trigger (geowrapper.cpp:137-138): a budgeted eviction
+        of the farthest blocks recovers the free high heap towards
+        STREAM_TARGET in one event (mrhash_tpu's plan_evictions), then the
+        host chunks near the camera come back.  The protect radius covers
+        the whole frustum: a wall point at max_depth near the image corner
+        lies max_depth * |(1, tanx, tany)| from the camera, beyond the
+        reference's max_depth radius; +0.5 m absorbs the block-corner
+        distance.  Only the plan, the gather and the clear run here; the
+        copy to the host and the ingest overlap the next frames, and the
+        next trigger joins them (PORT_NOTES.md P37)."""
+        need = int(P.STREAM_TARGET * self.cfg.num_blocks) - self._high_free
+        need = min(need, 4096, self.streamer.staging)
+        c = self.camera
+        tanx = c.cols / (2.0 * c.fx)           # f32, as the reference
+        tany = c.rows / (2.0 * c.fy)
+        protect = float(c.max_depth * torch.sqrt(1.0 + tanx * tanx
+                                                 + tany * tany) + 0.5)
+        with self.streaming_profiler.event():
+            self.state = self.streamer.stream(self.state, self.curr_trans,
+                                              protect, budget=max(need, 0),
+                                              asynchronous=True)
+        self.streaming_profiler.write(self.streamer.grid.num_blocks())
+        # a host int, fresh after the stream (ROADMAP C3)
+        self._high_free = self.state.table.high_count
+
     # ------------------------------------------------------------------ meshing
     def extractMesh(self, filename: str):
         """Host-native extractMesh (native/mrhash_mesh.cpp through the
@@ -256,6 +287,9 @@ class GeoWrapper:
         Transvoxel sweep on the host, write an ASCII PLY.  The device map
         stays live."""
         snap = ChunkGrid(np.asarray(self.cfg.voxel_extents, np.float32))
+        # the blocks of an asynchronous stream-out still in flight land in
+        # the grid before it is copied
+        self.streamer.join()
         snap.chunks = dict(self.streamer.grid.chunks)
         self.streamer.snapshot_into(self.state, snap, mesh_only=True)
         self.mesh.reset()
@@ -303,6 +337,16 @@ class GeoWrapper:
                       filename_voxel="./data/voxel_points.ply"):
         self.streamer.serialize_data(filename_hash, filename_voxel)
 
+    def serializeGrid(self, filename="./serialized_grid.bin"):
+        """Checkpoint the host chunk grid (mrhash_tpu's npz format; call
+        streamAllOut first to include the device blocks)."""
+        self.streamer.serialize_grid(filename)
+
+    def deserializeGrid(self, filename="./serialized_grid.bin"):
+        """Replace the host chunk grid with a checkpoint's; the blocks come
+        back to the device as the camera nears them."""
+        self.streamer.deserialize_grid(filename)
+
     # ------------------------------------------------------------------ getters
     def getHashNumBuckets(self):
         return self.state.table.num_buckets
@@ -333,6 +377,9 @@ class GeoWrapper:
 
     def getNFramesInvalidateVoxels(self):
         return self.cfg.n_frames_invalidate_voxels
+
+    def getMaxNumSdfBlockIntegrateFromGlobalHash(self):
+        return self.streamer.staging
 
     def getVoxelExtentsScale(self):
         return self.cfg.voxel_extents[0]

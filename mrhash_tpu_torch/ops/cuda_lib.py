@@ -44,6 +44,9 @@ SIGNATURES = {
                                       _vp],
     # img, rows, cols, row, col, ok, n_blocks, out, stream
     "mrhash_sample_image": [_vp, _i, _i, _vp, _vp, _vp, _i64, _vp, _vp],
+    # img5, rows, cols, r0, c0, lr, lc, n_blocks, out, stream
+    "mrhash_sample_image5": [_vp, _i, _i, _vp, _vp, _vp, _vp, _i64, _vp,
+                             _vp],
     # img, pix, r_vox, ptr, entries, n_entries, res, t0, t1, max_int,
     # w_sample, w_max, vvs, sdf, sumsq, weight, flags, stream
     "mrhash_fused_integrate_points_window": [_vp, _vp, _vp, _vp, _vp, _i64,

@@ -17,6 +17,15 @@ and hit L2.
 `sample_image` takes the plain PyTorch twin `sample_image_ref` for CPU
 tensors only; for CUDA tensors it launches the kernel or raises.
 `launch_count` counts kernel launches.
+
+Kernel K6, `sample_image5`, is the counterpart of
+mrhash_tpu/ops/pallas_kernels.py::sample_image_pallas_v2 (the Pallas kernel
+`_sample_kernel_v2`, an experiment the JAX package never calls), with its
+contract: a bf16 5-channel image (depth hi/lo split, r, g, b), per block an
+8- and 128-aligned patch origin, per lane patch-local (row, col).  Its
+one-hot bf16 contraction selects one element, so it is a masked gather
+(csrc/sample_image.cu); channels 5-7 are 0 (PORT_NOTES.md P41).
+`launch_count5` counts its launches.
 """
 from __future__ import annotations
 
@@ -25,8 +34,11 @@ import torch
 from mrhash_tpu_torch.ops import cuda_lib
 
 LANES = 512
+PATCH_H, PATCH_W = 32, 256      # K6's patch (pallas_kernels.PATCH_H2, PATCH_W)
+N_CH5, OUT_CH5 = 5, 8
 
 launch_count = 0
+launch_count5 = 0
 
 
 def sample_image_ref(img, row, col, ok):
@@ -77,4 +89,66 @@ def _launch(img, row, col, ok):
     cuda_lib.check(rc, "sample_image")
     global launch_count
     launch_count += 1
+    return out
+
+
+def sample_image5_ref(img5, r0, c0, lr, lc):
+    """Plain PyTorch twin of K6: out[a, ch, l] = img5[ch, r0' + lr, c0' +
+    lc] for ch < 5 where 0 <= lr < 32 and 0 <= lc < 256, else 0, with
+    r0' = clamp(r0, 0, H - 32) and c0' = clamp(c0, 0, W - 256) (the patch
+    slice clamps its origin like dynamic_slice); channels 5-7 are 0."""
+    _, H_, W_ = img5.shape
+    A = lr.shape[0]
+    r0c = torch.clamp(r0.to(torch.int64), 0, H_ - PATCH_H)[:, None]
+    c0c = torch.clamp(c0.to(torch.int64), 0, W_ - PATCH_W)[:, None]
+    ok = (lr >= 0) & (lr < PATCH_H) & (lc >= 0) & (lc < PATCH_W)
+    flat = torch.where(ok, (r0c + lr) * W_ + c0c + lc, 0)
+    vals = img5.reshape(N_CH5, H_ * W_)[:, flat].to(torch.float32)
+    out = torch.zeros((A, OUT_CH5, LANES), dtype=torch.float32,
+                      device=img5.device)
+    out[:, :N_CH5] = torch.where(ok, vals, 0.0).permute(1, 0, 2)
+    return out
+
+
+def sample_image5(img5, r0, c0, lr, lc):
+    """K6 wrapper, sample_image_pallas_v2's contract.  img5 bf16[5,H,W]
+    channel-first with H >= 32 and W >= 256; r0/c0 i32[A] patch origins;
+    lr/lc i32[A,512] patch-local coordinates; A % 8 == 0.  Returns
+    f32[A,8,512]."""
+    dev = img5.device
+    _, H_, W_ = img5.shape
+    A = lr.shape[0]
+    e = cuda_lib.expect
+    e(img5, "img5", torch.bfloat16, (N_CH5, H_, W_), dev)
+    e(r0, "r0", torch.int32, (A,), dev)
+    e(c0, "c0", torch.int32, (A,), dev)
+    e(lr, "lr", torch.int32, (A, LANES), dev)
+    e(lc, "lc", torch.int32, (A, LANES), dev)
+    if H_ < PATCH_H or W_ < PATCH_W or A % 8:
+        raise ValueError(f"sample_image5: needs H >= {PATCH_H}, W >= "
+                         f"{PATCH_W} and A % 8 == 0, got {H_}, {W_}, {A}")
+    if dev.type == "cpu":
+        return sample_image5_ref(img5, r0, c0, lr, lc)
+    if dev.type != "cuda":
+        raise ValueError(f"sample_image5: no kernel for {dev}")
+    return _launch5(img5, r0, c0, lr, lc)
+
+
+def _launch5(img5, r0, c0, lr, lc):
+    """Launch K6 on CUDA operands that sample_image5 has validated."""
+    dev = img5.device
+    _, H_, W_ = img5.shape
+    A = lr.shape[0]
+    out = torch.empty((A, OUT_CH5, LANES), dtype=torch.float32, device=dev)
+    if A == 0:
+        return out
+    lib = cuda_lib.library()
+    p = cuda_lib.ptr
+    with torch.cuda.device(dev):
+        rc = lib.mrhash_sample_image5(p(img5), H_, W_, p(r0), p(c0), p(lr),
+                                      p(lc), A, p(out),
+                                      cuda_lib.stream_of(img5))
+    cuda_lib.check(rc, "sample_image5")
+    global launch_count5
+    launch_count5 += 1
     return out

@@ -263,11 +263,13 @@ def test_geowrapper_refuses_what_is_not_ported():
     gw.setDepthImage(np.full((WROWS, WCOLS), 1.0, np.float32))
     gw.setRGBImage(np.zeros((WROWS, WCOLS, 3), np.uint8))
     # a 16-block pool fills up on the first frame: the stream-out watermark
-    # is reached and compute() raises instead of skipping the stream
+    # is reached, and the next compute() streams before it integrates
     gw.compute()
     assert gw._high_free <= P.STREAM_THRESHOLD * 16
-    with pytest.raises(NotImplementedError, match="stream"):
-        gw.compute()
+    assert gw.streamer.out_events == []
+    gw.compute()
+    assert len(gw.streamer.out_events) == 1
+    assert gw.last_stats["frame"] == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             GeoWrapper(**dict(kw, device="cuda"))
