@@ -8,6 +8,7 @@ of the RGB-D frame time against another checkout of the port.
     python3 chip_profile.py --multires
     python3 chip_profile.py --walk
     python3 chip_profile.py --rgbd-ab OTHER_ROOT
+    python3 chip_profile.py --kernels-ab OTHER_ROOT [OTHER_ROOT ...]
 
 The first form drives chip_smoke.py's LiDAR cell
 (configurations/newer_college.cfg, 64x1024 scans of the synthetic ground +
@@ -51,8 +52,14 @@ The last form times chip_smoke.py's RGB-D cell (120 frames of the
 box-room orbit at 1200x680, no mesh), each run in a fresh process, with
 the mrhash_tpu_torch of OTHER_ROOT (A) and of this checkout (B) in turns
 A B B A A B B A, and prints each run's median frame time over frames
-40-119.  Prints the card's name and power limit beside the numbers.  Needs
-a card.
+40-119.
+The --kernels-ab form builds the kernel library of each OTHER_ROOT (its
+own ops/cuda_lib.py over its own csrc) beside this checkout's, prints
+each one's K1 and K4/K5 registers and spills (nvcc -Xptxas -v), holds each
+one's K1 (res-0 and res-1 paths) and K5 against this checkout's on
+chip_smoke.py's phase-3 inputs (K5 at K = 64 and K = 128), and times them
+in turns by CUDA-graph replay, with the bound each is held to.
+Prints the card's name and power limit beside the numbers.  Needs a card.
 """
 import json
 import os
@@ -364,6 +371,186 @@ def walk_profile(smi):
               f"{e.key[:90]}")
 
 
+def _root_library(root):
+    """(module, library): ROOT's own ops/cuda_lib.py, loaded under another
+    module name, and the kernel library it builds from ROOT's csrc into
+    ROOT's _build, with ROOT's launch signatures."""
+    import importlib.util
+    path = os.path.join(root, "mrhash_tpu_torch", "ops", "cuda_lib.py")
+    name = "cuda_lib_" + str(abs(hash(os.path.abspath(root))))
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, mod.library()
+
+
+def _ptxas_lines(root):
+    """nvcc -Xptxas -v over ROOT's K1 and K4/K5 sources: each kernel's
+    registers, spills and stack."""
+    import tempfile
+    mod, _ = _root_library(root)
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in ("fused_integrate.cu", "blend_tiles.cu"):
+            r = subprocess.run(
+                [mod._nvcc(), *mod.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                 os.path.join(tmp, src + ".o"), os.path.join(mod.CSRC, src)],
+                capture_output=True, text=True)
+            out += [ln.strip() for ln in r.stderr.splitlines()
+                    if "entry function" in ln or "spill" in ln
+                    or "Used" in ln]
+    return out
+
+
+def kernels_ab(roots):
+    """K1's res-0 and res-1 paths and K5 (K = 64 and 128) built from each
+    of `roots` and from this checkout, on chip_smoke.py's phase-3 inputs
+    (K1: the frame-41 window of the RGB-D orbit, single-res for res 0 and
+    multi-res for res 1; K5: the training render of frame 1 of the GS
+    scene), each held against this checkout's kernel once and then timed
+    in turns (CUDA-graph replay of REPEAT calls, CUDA events), a version's
+    pool updates on its own copy."""
+    import torch
+
+    from mrhash_tpu_torch.core.state import pack_rgb
+    from mrhash_tpu_torch.gs import rasterizer as R
+    from mrhash_tpu_torch.gs.container import _cam_dict
+    from mrhash_tpu_torch.ops import camera as C
+    from mrhash_tpu_torch.ops import cuda_lib
+    from mrhash_tpu_torch.ops import fused_integrate as FI
+    import numpy as np
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    roots = [os.path.abspath(r) for r in roots] + [here]
+    libs = {r: _root_library(r) for r in roots}
+    smi = S.nvidia_smi_line()
+    for r in roots:
+        print(f"ptxas {r}:", flush=True)
+        for ln in _ptxas_lines(r):
+            print("  " + ln, flush=True)
+    p, dev = cuda_lib.ptr, torch.device("cuda")
+
+    def in_turns(calls):
+        replay = {r: S.graphed(f) for r, f in calls.items()}
+        order = roots + roots[::-1]
+        ms = {r: [] for r in roots}
+        for k in range(S.TURNS * len(roots)):
+            r = order[k % len(order)]
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            replay[r]()
+            b.record()
+            torch.cuda.synchronize()
+            ms[r].append(a.elapsed_time(b) / S.REPEAT)
+        return {r: statistics.median(v) for r, v in ms.items()}
+
+    result = {}
+    rng = np.random.default_rng(0)
+    rgb = rng.integers(0, 255, (S.ROWS, S.COLS, 3)).astype(np.uint8)
+    depths = [S.room_depth(*S.orbit_pose(i)[:2], rng) for i in range(S.ORBIT)]
+    rgbp = pack_rgb(torch.from_numpy(rgb).to(dev)).contiguous()
+    # K1 on the frame-41 window: res 0 over the single-res window, res 1
+    # over the res-1 entries of the multi-res window
+    for kind, multires in ((0, False), (1, True)):
+        gw = S.make_wrapper("cuda", multires=multires)
+        for i in range(S.ORBIT):
+            S.feed(gw, i, depths, rgb)
+        cfg = gw.cfg
+        cam, pc_depth, (_, bpos, bptr, bres) = S.rgbd_window(gw, depths,
+                                                             S.ORBIT)
+        A = bpos.shape[0]
+        cam_vec = FI.make_cam_vec(cam, cfg.virtual_voxel_size,
+                                  cfg.sdf_truncation,
+                                  cfg.sdf_truncation_scale,
+                                  cfg.max_integration_distance,
+                                  cfg.integration_weight_sample,
+                                  cfg.integration_weight_max)
+        src = gw.state.pool
+        del gw
+        entries = torch.nonzero(bres == kind).flatten()
+        n = entries.numel()
+        sub = tuple(t[entries].contiguous() for t in (bpos, bptr, bres))
+        pools = dict(zip(roots, S.clone_pools(src, len(roots))))
+        flags = {r: torch.empty((A, 4), device=dev) for r in roots}
+
+        def k1(r):
+            mod, lib = libs[r]
+            q, f = pools[r], flags[r]
+            return lambda: mod.check(lib.mrhash_fused_integrate_window(
+                p(pc_depth), p(rgbp), pc_depth.shape[1], p(cam_vec), p(bpos),
+                p(bptr), p(entries), n, kind, p(q.sdf), p(q.sumsq),
+                p(q.weight), p(q.rgbp), p(f), cuda_lib.stream_of(pc_depth)),
+                r)
+        for r in roots:
+            k1(r)()
+        torch.cuda.synchronize()
+        for r in roots:
+            err = S.window_error([pools[r], pools[here]], *sub[1:])
+            assert err["weight"] == 0 and err["rgbp"] == 0, (r, err)
+            assert err["sdf"] <= S.TOL["sdf"], (r, err)
+            assert torch.equal(flags[r][entries, :3],
+                               flags[here][entries, :3]), r
+        updated, _ = S.window_count(pools[here], src, *sub[1:])
+        t = in_turns({r: k1(r) for r in roots})
+        nvox = 512 if kind == 0 else 64
+        nbytes = (n * nvox * 12 + updated * 20 + S.ROWS * S.COLS * 8
+                  + n * (12 + 4 + 8) + 128 + n * 16)
+        result[f"k1_res{kind}"] = dict(
+            ms=t, entries=n, updated=updated,
+            bound_ms=S.bound(nbytes, n * nvox * 60)[0])
+        del pools, flags, src
+
+    # K5 on the GS training render of frame 1
+    train, _, _ = S.gs_frames(np.random.default_rng(0))
+    gw = S.make_gs_wrapper("cuda")
+    for f in train:
+        S.feed_gs(gw, f)
+    gc = gw.gs_container
+    cam = C.with_pose(gw.camera, train[1]["rot"], train[1]["trans"])
+    params, cd = gc.model.params(), _cam_dict(cam)
+    bg = gc.model.background
+    gt = torch.from_numpy(train[1]["rgb"]).to(dev).to(torch.float32)
+    for K in (S.GS_K, S.GS_FINAL_K):
+        with torch.no_grad():
+            b = R.bin_and_gather(params, cd, gc.p.sh_degree, max_per_tile=K)
+        attr, valid, gx = b["attr"].contiguous(), b["valid"], b["grid_x"]
+        T = valid.shape[0]
+        c = S.blend_case(attr, valid, gx, b["grid_y"], bg, gt, S.ROWS,
+                         S.COLS)
+        outs = {r: torch.empty((T, K, 9), device=dev) for r in roots}
+
+        def k5(r):
+            mod, lib = libs[r]
+            head = [p(attr)]
+            if len(mod.SIGNATURES["mrhash_blend_backward"]) == 11:
+                head.append(p(valid))    # K5 that walks from the last valid
+            args = [*head, T, K, gx, p(c["Tk"]), p(c["mk"]), p(c["gT"]),
+                    p(c["gC"]), p(outs[r])]
+            # the stream is read at each call: a CUDA-graph capture runs
+            # on a side stream
+            return lambda: mod.check(lib.mrhash_blend_backward(
+                *args, cuda_lib.stream_of(attr)), r)
+        for r in roots:
+            k5(r)()
+        torch.cuda.synchronize()
+        for r in roots:
+            torch.testing.assert_close(outs[r], outs[here], atol=1e-4,
+                                       rtol=1e-4)
+        t = in_turns({r: k5(r) for r in roots})
+        result[f"k5_K{K}"] = dict(
+            ms=t, tiles=T, valid_slots=c["slots"], warp_steps=c["walked"],
+            busy_warp_steps=c["busy"],
+            bound_ms=S.bound(S.k5_bytes(T, K, c["slots"]),
+                             c["slots"] * 256 * 70)[0])
+        del b, attr, valid, c, outs
+    for name, rec in result.items():
+        for r in roots:
+            print(f"{name} {r}: {rec['ms'][r]:.4f} ms (bound "
+                  f"{rec['bound_ms']:.4f} ms) [{smi}]", flush=True)
+    print(json.dumps(dict(card=smi, kernels=result)), flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -379,6 +566,8 @@ def main():
 
     if len(sys.argv) == 3 and sys.argv[1] == "--rgbd-ab":
         return rgbd_ab(sys.argv[2])
+    if len(sys.argv) >= 3 and sys.argv[1] == "--kernels-ab":
+        return kernels_ab(sys.argv[2:])
     smi = S.nvidia_smi_line()
     print(f"card: {smi}", flush=True)
     if sys.argv[1:] == ["--gs"]:

@@ -16,7 +16,8 @@ Phases (any failure raises: non-zero exit, no result line):
                RGB-D path after 40 frames; K3 and its res-1 path: the LiDAR
                path, one resolution and multi-res, after 20 scans at
                64x1024; K4, K5: the GS training render of frame 1 of phase
-               6's scene, 1200x680, K = 64), then timed in turns (twin,
+               6's scene, 1200x680, K = 64, and K5 again at GSFinalOpt's
+               cap, K = 128), then timed in turns (twin,
                kernel, library, library, kernel, twin) by CUDA-graph replay
                and CUDA events; and each whole slice (RGB-D at one
                resolution and multi-res, LiDAR, GS, streaming) on the card
@@ -60,15 +61,16 @@ Phases (any failure raises: non-zero exit, no result line):
                serializeGrid -> deserializeGrid round trip.
 After the runs no jax and no mrhash_tpu module may be loaded.  The last
 lines are the kernels' JSON record (K1 and K3 with res1_* figures beside
-their res-0 ones), the card's name and power limit, and
+their res-0 ones, K5 with k128_* figures at K = 128), the card's name and
+power limit, and
 {"ok": true, "device": {...}}.
 
 Each kernel's bound_ms is the larger of its bytes over 3.35 TB/s and its
 f32 operations over 67 TFLOP/s (an H100 SXM's published peaks), counted
 from this run's inputs: every input read once, every output written once,
 the pool lanes that only an update needs read and written only where
-this run updated them, and the blend's operations only for the valid
-(tile, k) slots of this render.
+this run updated them, and the blend's operations (and K5's attribute
+and mask reads) only for the valid (tile, k) slots of this render.
 """
 import json
 import os
@@ -103,6 +105,7 @@ GS_TRAIN_ITERS = 60
 GS_MORE_FRAMES = 10
 GS_PSNR_REF = dict(train=23.99, holdout=28.27)   # BENCH_GS.json, quality
 GS_K = 64                       # train_max_per_tile
+GS_FINAL_K = 128                # GSFinalOpt's blend cap (gs/container.py)
 
 # streaming walk: tools/bench_walk.py (1200x680, 1 cm, 2^16 blocks)
 W_HALF, W_STEP, W_MAXD = 1.5, 0.08, 4.0   # tube half side, m/frame, m
@@ -949,12 +952,63 @@ def compare_small_gs(devices=("cpu", "cuda")):
     assert max(q95.values()) <= 1e-5 and max(err.values()) <= 2e-3, err
 
 
+def k5_bytes(T, K, slots):
+    """K5's bytes: attr and mask rows of the valid slots read, the
+    gradient of every slot written, Tfin, gT and gC read per pixel."""
+    return slots * 292 + T * K * 36 + T * 256 * 20
+
+
+def blend_case(attr, valid, gx, gy, bg, gt, rows, cols):
+    """K4 and K5 against their twins on one binned render: the K4 outputs,
+    the cotangents of the summed L1 loss against `gt`, and the errors."""
+    import torch
+
+    from mrhash_tpu_torch.gs import blend as B
+    from mrhash_tpu_torch.gs import rasterizer as R
+
+    T, K = valid.shape
+    Tk, Ck, mk = B.blend_forward(attr, valid, gx)
+    Tt, Ct, mt = B.blend_forward_ref(attr, valid, gx)
+    Tl = Tk.clone().requires_grad_()
+    Cl = Ck.clone().requires_grad_()
+    img = R.untile(Tl, Cl, bg, gx, gy, rows, cols)
+    gT, gC = torch.autograd.grad(
+        (img - gt.permute(2, 0, 1) / 255.0).abs().sum(), [Tl, Cl])
+    gT, gC = gT.contiguous(), gC.contiguous()
+    gk = B.blend_backward(attr, valid, gx, Tk, mk, gT, gC)
+    gt_ = B.blend_backward_ref(attr, gx, Tk, mk, gT, gC)
+    torch.cuda.synchronize()
+    flips = int((mk != mt).sum())
+    e4 = max(float((Tk - Tt).abs().max()), float((Ck - Ct).abs().max()))
+    e5 = float((gk - gt_).abs().max())
+    slots = int(valid.sum())
+    blended = int((mk != 0).sum())
+    # (tile, k, warp of 32 pixels) steps K5 walks, and those with a blended
+    # pixel (the rest it skips)
+    last = torch.where(valid, torch.arange(1, K + 1, device=valid.device),
+                       0).amax(1)
+    walked = int(last.sum()) * 8
+    busy = int((mk.view(T, K, 8, 32) != 0).any(-1).sum())
+    log(f"compare K4 at K {K}: {T} tiles, {slots} valid slots, {blended} "
+        f"blended (tile, k, pixel); mask flips {flips}, max |diff| "
+        f"Tfin/Cfin {e4}")
+    log(f"compare K5 at K {K}: max |diff| {e5} (largest |grad| "
+        f"{float(gt_.abs().max())}); warp steps walked {walked}, with a "
+        f"blended pixel {busy}")
+    assert flips == 0 and e4 <= 1e-6, (flips, e4)
+    torch.testing.assert_close(gk, gt_, atol=1e-4, rtol=1e-4)
+    assert blended > 100000, "K4 blended almost nothing"
+    return dict(Tk=Tk, mk=mk, gT=gT, gC=gC, e4=e4, e5=e5, slots=slots,
+                walked=walked, busy=busy)
+
+
 def compare_blend_kernels(train, rows=ROWS, cols=COLS):
     """Drive the GS path over the two training frames, then hold K4 and
-    K5 against their twins on the training render of frame 1 (K = 64):
-    Tfin and Cfin within 1e-6, the mask equal, the attribute gradients
-    within 1e-4 absolute and relative under the cotangents of the summed
-    L1 loss against frame 1."""
+    K5 against their twins on the training render of frame 1 at the
+    online cap (K = 64) and at GSFinalOpt's (K = 128): Tfin and Cfin
+    within 1e-6, the mask equal, the attribute gradients within 1e-4
+    absolute and relative under the cotangents of the summed L1 loss
+    against frame 1.  K4 is timed at K = 64, K5 at both."""
     import torch
 
     from mrhash_tpu_torch.gs import blend as B
@@ -967,55 +1021,48 @@ def compare_blend_kernels(train, rows=ROWS, cols=COLS):
         feed_gs(gw, f)
     gc = gw.gs_container
     cam = C.with_pose(gw.camera, train[1]["rot"], train[1]["trans"])
-    with torch.no_grad():
-        b = R.bin_and_gather(gc.model.params(), _cam_dict(cam),
-                             gc.p.sh_degree, max_per_tile=GS_K)
-    attr, valid, gx = b["attr"].contiguous(), b["valid"], b["grid_x"]
+    params, cd = gc.model.params(), _cam_dict(cam)
     n_gauss, bg = gc.model.count, gc.model.background
-    del gw, gc
-    T, K = valid.shape
-    Tk, Ck, mk = B.blend_forward(attr, valid, gx)
-    Tt, Ct, mt = B.blend_forward_ref(attr, valid, gx)
-    Tl = Tk.clone().requires_grad_()
-    Cl = Ck.clone().requires_grad_()
-    img = R.untile(Tl, Cl, bg, gx, b["grid_y"], rows, cols)
     gt = torch.from_numpy(train[1]["rgb"]).cuda().to(torch.float32)
-    gT, gC = torch.autograd.grad(
-        (img - gt.permute(2, 0, 1) / 255.0).abs().sum(), [Tl, Cl])
-    gT, gC = gT.contiguous(), gC.contiguous()
-    gk = B.blend_backward(attr, gx, Tk, mk, gT, gC)
-    gt_ = B.blend_backward_ref(attr, gx, Tk, mk, gT, gC)
-    torch.cuda.synchronize()
-    flips = int((mk != mt).sum())
-    e4 = max(float((Tk - Tt).abs().max()), float((Ck - Ct).abs().max()))
-    e5 = float((gk - gt_).abs().max())
-    slots = int(valid.sum())
-    blended = int((mk != 0).sum())
-    log(f"compare K4: {T} tiles x K {K}, {n_gauss} Gaussians, {slots} "
-        f"valid slots, {blended} blended (tile, k, pixel); mask flips "
-        f"{flips}, max |diff| Tfin/Cfin {e4}")
-    log(f"compare K5: max |diff| {e5} (largest |grad| "
-        f"{float(gt_.abs().max())})")
-    assert T == (rows // 16 + (rows % 16 > 0)) * (cols // 16 + (cols % 16
-                                                              > 0)), T
-    assert flips == 0 and e4 <= 1e-6, (flips, e4)
-    torch.testing.assert_close(gk, gt_, atol=1e-4, rtol=1e-4)
-    assert blended > 100000, "K4 blended almost nothing"
-    t4 = time_in_turns(lambda: B._launch_forward(attr, valid, gx),
-                       lambda: B.blend_forward_ref(attr, valid, gx))
-    t5 = time_in_turns(
-        lambda: B._launch_backward(attr, gx, Tk, mk, gT, gC),
-        lambda: B.blend_backward_ref(attr, gx, Tk, mk, gT, gC))
-    # K4: attr (36 B) and valid (1 B) read and the mask (256 B) written
-    # per (tile, k); T and C (16 B) written per pixel; ~30 f32 operations
-    # per valid (tile, k, pixel).  K5: attr and the mask read and the
-    # gradient (36 B) written per (tile, k); Tfin, gT and gC (20 B) read
-    # per pixel; ~70 operations per valid (tile, k, pixel)
-    k4 = kernel_record(t4, e4, T * K * 293 + T * 256 * 16, slots * 256 * 30)
-    k5 = kernel_record(t5, e5, T * K * 328 + T * 256 * 20, slots * 256 * 70)
-    for k in (k4, k5):
-        k.update(tiles=T, K=K, valid_slots=slots)
-    return k4, k5
+    log(f"compare K4/K5: {n_gauss} Gaussians")
+    recs = []
+    for K in (GS_K, GS_FINAL_K):
+        with torch.no_grad():
+            b = R.bin_and_gather(params, cd, gc.p.sh_degree,
+                                 max_per_tile=K)
+        attr, valid, gx = b["attr"].contiguous(), b["valid"], b["grid_x"]
+        T = valid.shape[0]
+        assert valid.shape[1] == K and T == (
+            (rows + 15) // 16) * ((cols + 15) // 16), valid.shape
+        c = blend_case(attr, valid, gx, b["grid_y"], bg, gt, rows, cols)
+        Tk, mk, gT, gC = c["Tk"], c["mk"], c["gT"], c["gC"]
+        t4 = None
+        if K == GS_K:
+            t4 = time_in_turns(lambda: B._launch_forward(attr, valid, gx),
+                               lambda: B.blend_forward_ref(attr, valid, gx))
+        t5 = time_in_turns(
+            lambda: B._launch_backward(attr, valid, gx, Tk, mk, gT, gC),
+            lambda: B.blend_backward_ref(attr, gx, Tk, mk, gT, gC))
+        # K4: attr (36 B) and valid (1 B) read and the mask (256 B) written
+        # per (tile, k); T and C (16 B) written per pixel; ~30 f32
+        # operations per valid (tile, k, pixel).  K5: attr and the mask
+        # (292 B) read per valid (tile, k) (K4 blends no invalid slot, so
+        # the others' mask rows are zeros the function need not read) and
+        # the gradient (36 B) written per (tile, k); Tfin, gT and gC (20 B)
+        # read per pixel; ~70 operations per valid (tile, k, pixel)
+        slots = c["slots"]
+        k5 = kernel_record(t5, c["e5"], k5_bytes(T, K, slots),
+                           slots * 256 * 70)
+        k5.update(tiles=T, K=K, valid_slots=slots, warp_steps=c["walked"],
+                  busy_warp_steps=c["busy"])
+        if t4 is not None:
+            k4 = kernel_record(t4, c["e4"], T * K * 293 + T * 256 * 16,
+                               slots * 256 * 30)
+            k4.update(tiles=T, K=K, valid_slots=slots)
+            recs.append(k4)
+        recs.append(k5)
+        del b, attr, valid, c, Tk, mk, gT, gC
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -1627,9 +1674,9 @@ def main():
         f"ms, bound {k3r['bound_ms']:.4f} ms, {k3r['bytes']} B) over "
         f"{k3r['res1_blocks']} res-1 blocks of a {k3r['window_blocks']}-block "
         f"window [{smi}]")
-    k4, k5 = compare_blend_kernels(train)
+    k4, k5, k5f = compare_blend_kernels(train)
     torch.cuda.empty_cache()
-    for name, k in (("K4", k4), ("K5", k5)):
+    for name, k in (("K4", k4), ("K5", k5), ("K5", k5f)):
         log(f"compare: {name} {k['ms']:.4f} ms (twin {k['plain_ms']:.4f} ms, "
             f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}, {k['bytes']} "
             f"B) over {k['tiles']} tiles x K {k['K']} [{smi}]")
@@ -1729,6 +1776,9 @@ def main():
                 "B6 (sample_image_pallas_v2, marked EXPERIMENT, NOT USED)")
         if name in w_launches:
             entry["walk_launches"] = w_launches[name]
+        if name == "blend_backward":   # at GSFinalOpt's cap, K = 128
+            entry.update({"k128_" + k: k5f[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -9,11 +9,11 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
-from tqdm import tqdm
 
 from mrhash_tpu_torch.apps.runner_common import (build_geowrapper,
                                                  load_config,
-                                                 prepare_results_dir)
+                                                 prepare_results_dir,
+                                                 progress)
 from mrhash_tpu_torch.apps.utils.camera import (CameraModel,
                                                 calculate_spherical_intrinsics)
 from mrhash_tpu_torch.apps.utils.readers import PLYReader
@@ -35,8 +35,7 @@ def lidar_loop(reader, cfg, config, rows=64, cols=1024, compute_normals=False,
     if camera_in_lidar is not None:
         gw.setCameraInLidar(camera_in_lidar)
     camera_set = False
-    for i, (pose, quat, points) in enumerate(tqdm(reader,
-                                                  desc="processing...")):
+    for i, (pose, quat, points) in enumerate(progress(reader)):
         if i + 1 > end_frame:
             break
         if points.shape[0] == 0:

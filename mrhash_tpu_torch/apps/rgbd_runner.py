@@ -9,13 +9,24 @@ from __future__ import annotations
 
 import argparse
 
-from tqdm import tqdm
-
 from mrhash_tpu_torch.apps.utils.camera import Camera, CameraModel
 from mrhash_tpu_torch.apps.utils.readers import DepthReader
 from mrhash_tpu_torch.apps.runner_common import (build_geowrapper,
                                                  load_config, pinhole_K,
-                                                 prepare_results_dir)
+                                                 prepare_results_dir,
+                                                 progress)
+
+
+def integrate_frames(gw, frames, end_frame):
+    """Feed each (frame, pose, quat, depth, rgb) of `frames` to `gw` up to
+    frame number `end_frame`."""
+    for frame, pose, quat, depth_img, rgb_img in progress(frames):
+        if frame > end_frame:
+            break
+        gw.setCurrPose(pose, quat)
+        gw.setDepthImage(depth_img)
+        gw.setRGBImage(rgb_img)
+        gw.compute()
 
 
 def main(config_path, gs=False, end_frame_override=None, skip_outputs=False,
@@ -46,14 +57,7 @@ def main(config_path, gs=False, end_frame_override=None, skip_outputs=False,
     gw.setCamera(cam.fx_, cam.fy_, cam.cx_, cam.cy_, cam.rows_, cam.cols_,
                  cam.min_depth_, cam.max_depth_, cam.model_)
 
-    for frame, pose, quat, depth_img, rgb_img in tqdm(reader,
-                                                      desc="processing..."):
-        if frame > end_frame:
-            break
-        gw.setCurrPose(pose, quat)
-        gw.setDepthImage(depth_img)
-        gw.setRGBImage(rgb_img)
-        gw.compute()
+    integrate_frames(gw, reader, end_frame)
 
     if gs:
         gw.GSFinalOpt()

@@ -126,6 +126,25 @@ def build_geowrapper(cfg, min_depth, max_depth, **overrides):
     )
 
 
+def progress(frames, desc="processing...", every=100):
+    """`frames` under a tqdm bar, or, where tqdm is not installed, as they
+    are with a line on stdout every `every` frames."""
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        return _plain_progress(frames, desc, every)
+    return tqdm(frames, desc=desc)
+
+
+def _plain_progress(frames, desc, every):
+    n = 0
+    for n, item in enumerate(frames, 1):
+        yield item
+        if n % every == 0:
+            print(f"{desc} {n} frames", flush=True)
+    print(f"{desc} done, {n} frames", flush=True)
+
+
 def pinhole_K(cfg):
     K = np.zeros((3, 3), np.float32)
     K[0, 0], K[1, 1], K[0, 2], K[1, 2] = cfg["sensor"]["intrinsics"]

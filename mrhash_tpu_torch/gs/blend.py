@@ -7,9 +7,15 @@ Counterpart of mrhash_tpu/gs/blend_pallas.py (the Pallas kernels
 source is csrc/blend_tiles.cu; its header comment gives the design.  In
 short, one CTA per 16x16 tile and one thread per pixel walk the tile's K
 depth-sorted Gaussians: K4 front to back, writing the final transmittance,
-the colour and an i8 mask of the blended steps; K5 back to front,
-recovering each step's transmittance from the final one and the mask, and
-reducing per-(tile, k) gradients over the tile's pixels.
+the colour and an i8 mask of the blended steps; K5 back to front from
+each tile's last valid slot, recovering each step's transmittance from
+the final one and the mask, and reducing per-(tile, k) gradients over the
+tile's pixels.  K5 packs the mask into one 32-bit word per (step, warp of
+32 pixels) in shared memory, skips a step for a warp that blended none of
+its pixels there (exact: the step changes nothing and adds zeros), and
+sums the 9 gradients of a warp with a 12-shuffle transpose butterfly; its
+sums over the 256 pixels are taken in another order than the twin's
+(PORT_NOTES.md P42).
 
 Layouts are tile-major: attributes f32[T,K,9] (x, y, conic a/b/c,
 opacity, r, g, b), validity bool[T,K], the mask i8[T,K,256]; tile t covers
@@ -163,37 +169,43 @@ def _launch_forward(attr, valid, grid_x):
     return tfin, cfin, mask
 
 
-def blend_backward(attr, grid_x: int, Tfin, mask, gT, gC):
-    """K5 wrapper.  attr f32[T,K,9]; Tfin f32[T,256] and mask i8[T,K,256]
-    from K4; gT f32[T,256], gC f32[T,256,3] the cotangents of Tfin and
-    Cfin.  Returns the gradient of attr, f32[T,K,9]."""
+def blend_backward(attr, valid, grid_x: int, Tfin, mask, gT, gC):
+    """K5 wrapper.  attr f32[T,K,9] and valid bool[T,K] as given to K4;
+    Tfin f32[T,256] and mask i8[T,K,256] from K4; gT f32[T,256], gC
+    f32[T,256,3] the cotangents of Tfin and Cfin.  Returns the gradient of
+    attr, f32[T,K,9].  The kernel walks each tile from its last valid slot
+    (K4 blends no invalid one); the twin needs only the mask."""
     dev = attr.device
     n_tiles, K = mask.shape[:2]
     e = cuda_lib.expect
     e(attr, "attr", torch.float32, (n_tiles, K, N_ATTR), dev)
+    e(valid, "valid", torch.bool, (n_tiles, K), dev)
     e(mask, "mask", torch.int8, (n_tiles, K, PIX), dev)
     e(Tfin, "Tfin", torch.float32, (n_tiles, PIX), dev)
     e(gT, "gT", torch.float32, (n_tiles, PIX), dev)
     e(gC, "gC", torch.float32, (n_tiles, PIX, 3), dev)
     if grid_x < 1:
         raise ValueError(f"grid_x: {grid_x}, expected >= 1")
+    if mask.data_ptr() % 8:
+        raise ValueError("mask: not 8-byte aligned (the kernel reads 8 B "
+                         "per lane)")
     if dev.type == "cpu":
         return blend_backward_ref(attr, grid_x, Tfin, mask, gT, gC)
     if dev.type != "cuda":
         raise ValueError(f"blend_backward: no kernel for {dev}")
-    return _launch_backward(attr, grid_x, Tfin, mask, gT, gC)
+    return _launch_backward(attr, valid, grid_x, Tfin, mask, gT, gC)
 
 
-def _launch_backward(attr, grid_x, Tfin, mask, gT, gC):
+def _launch_backward(attr, valid, grid_x, Tfin, mask, gT, gC):
     dev = attr.device
     n_tiles, K = mask.shape[:2]
     gout = torch.empty((n_tiles, K, N_ATTR), dtype=torch.float32, device=dev)
     lib = cuda_lib.library()
     p = cuda_lib.ptr
     with torch.cuda.device(dev):
-        rc = lib.mrhash_blend_backward(p(attr), n_tiles, K, grid_x, p(Tfin),
-                                       p(mask), p(gT), p(gC), p(gout),
-                                       cuda_lib.stream_of(attr))
+        rc = lib.mrhash_blend_backward(p(attr), p(valid), n_tiles, K, grid_x,
+                                       p(Tfin), p(mask), p(gT), p(gC),
+                                       p(gout), cuda_lib.stream_of(attr))
     cuda_lib.check(rc, "blend_backward")
     launch_count["blend_backward"] += 1
     return gout
@@ -207,19 +219,19 @@ class BlendTiles(torch.autograd.Function):
     @staticmethod
     def forward(ctx, attr, valid, grid_x):
         Tfin, Cfin, mask = blend_forward(attr, valid, grid_x)
-        ctx.save_for_backward(attr, Tfin, mask)
+        ctx.save_for_backward(attr, valid, Tfin, mask)
         ctx.grid_x = grid_x
         ctx.mark_non_differentiable(mask)
         return Tfin, Cfin, mask
 
     @staticmethod
     def backward(ctx, gT, gC, _gmask):
-        attr, Tfin, mask = ctx.saved_tensors
+        attr, valid, Tfin, mask = ctx.saved_tensors
         gT = torch.zeros_like(Tfin) if gT is None else gT.contiguous()
         gC = (torch.zeros((*Tfin.shape, 3), dtype=Tfin.dtype,
                           device=Tfin.device)
               if gC is None else gC.contiguous())
-        g = blend_backward(attr, ctx.grid_x, Tfin, mask, gT, gC)
+        g = blend_backward(attr, valid, ctx.grid_x, Tfin, mask, gT, gC)
         return g, None, None
 
 

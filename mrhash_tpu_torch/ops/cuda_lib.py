@@ -54,8 +54,9 @@ SIGNATURES = {
                                              _vp, _vp, _vp, _vp, _vp],
     # attr, valid, n_tiles, K, grid_x, tfin, cfin, mask, stream
     "mrhash_blend_forward": [_vp, _vp, _i, _i, _i, _vp, _vp, _vp, _vp],
-    # attr, n_tiles, K, grid_x, tfin, mask, gt, gc, gout, stream
-    "mrhash_blend_backward": [_vp, _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp],
+    # attr, valid, n_tiles, K, grid_x, tfin, mask, gt, gc, gout, stream
+    "mrhash_blend_backward": [_vp, _vp, _i, _i, _i, _vp, _vp, _vp, _vp, _vp,
+                              _vp],
 }
 
 

@@ -3,20 +3,26 @@
 Replaces mrhash_tpu/ops/fused_integrate.py::_kernel, both its res-0 branch
 and its packed res-1 branch (the Pallas kernel behind
 fused_integrate_pallas).  The CUDA source is csrc/fused_integrate.cu; its
-header comment gives the design.  In short, one thread per voxel of each
-window entry: a 512-thread CTA serves one res-0 entry or 8 res-1 entries
-of 64 voxels each.  Each thread projects its voxel, loads depth + RGB at
-its own pixel, applies truncation, combineVoxel and the Welford update,
-and writes its voxel in place at ptr + local; each entry then reduces its
-flags over its own window.  Entries own disjoint windows (siblings of a
-shared row included), so no row packing is needed.
+header comment gives the design.  In short, the kernel works per window
+entry and writes each entry's window in place: a res-0 entry is 128
+threads of 4 x-consecutive voxels each (16-byte loads and stores of every
+field), and a CTA walks 2 such entries with the next one's bpos and ptr
+in flight; a res-1 entry is 64 threads of one voxel, 8 entries per
+512-thread CTA.  Each thread projects its voxels, loads depth + RGB at
+their own pixels, applies truncation, combineVoxel and the Welford update;
+each entry then reduces its flags over its own window.  Entries own
+disjoint windows (siblings of a shared row included), so no row packing
+is needed.
 
 Bound on the card: bytes — 12 B of pool read per voxel of the window, 4 B
 of rgbp read and 16 B written per updated voxel, the frame read once.  The
-TPU kernel's patch + one-hot MXU sampling and the pack/scatter of pool rows
-existed to keep the frame and the rows in VMEM; on Hopper a direct load of
-each voxel's pixel (L2 resident) and an in-place window update move the
-fewest bytes.
+res-0 path reads rgbp for every voxel and writes back the whole 4-voxel
+group of any voxel that updates, so it moves more than that count; it
+trades those bytes for fewer dependent round trips (PORT_NOTES.md P43).
+The TPU kernel's patch + one-hot MXU sampling and the pack/scatter of pool
+rows existed to keep the frame and the rows in VMEM; on Hopper a direct
+load of each voxel's pixel (L2 resident) and an in-place window update
+move the fewest bytes.
 
 `fused_integrate_rows` takes the plain PyTorch twin
 `fused_integrate_rows_ref` for CPU tensors only; for CUDA tensors it
@@ -151,8 +157,9 @@ def fused_integrate_rows(pool, depth_img, rgb_img, cam_vec, bpos, ptr, res):
     rgb_img i32[H,W] packed r | g<<8 | b<<16; cam_vec f32[32]
     (make_cam_vec); window entries bpos i32[A,3], ptr i32[A] and res i32[A]
     with disjoint windows [ptr, ptr + 512) (res 0) or [ptr, ptr + 64)
-    (res 1) inside the pool.  Updates the windows in place and returns
-    flags f32[A,4]."""
+    (res 1) inside the pool; the pool fields 16-byte aligned (the res-0
+    kernel moves 4 voxels per access).  Updates the windows in place and
+    returns flags f32[A,4]."""
     dev = depth_img.device
     H_, W_ = depth_img.shape
     N = pool.sdf.shape[0]
@@ -167,6 +174,8 @@ def fused_integrate_rows(pool, depth_img, rgb_img, cam_vec, bpos, ptr, res):
     for f, dt in (("sdf", torch.float32), ("sumsq", torch.float32),
                   ("weight", torch.int32), ("rgbp", torch.int32)):
         e(getattr(pool, f), f"pool.{f}", dt, (N, LANES), dev)
+        if getattr(pool, f).data_ptr() % 16:
+            raise ValueError(f"pool.{f}: not 16-byte aligned")
     n1 = check_windows(ptr, res, N) if A else 0
     if dev.type == "cpu":
         return fused_integrate_rows_ref(pool, depth_img, rgb_img, cam_vec,

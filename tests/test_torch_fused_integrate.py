@@ -194,6 +194,23 @@ def test_wrapper_rejects_bad_operands(scene):
                                     ptr_bad, res_bad)
 
 
+def test_wrapper_rejects_misaligned_pool(scene):
+    """The res-0 kernel moves 4 voxels per 16-byte access: a pool field
+    that does not start on 16 bytes is refused before any launch."""
+    from mrhash_tpu_torch.core.state import VoxelPool
+    cfg, cam, st, depths, rgb, bpos, bptr, bres = scene
+    cam_vec = FI.make_cam_vec(cam, 0.02, 0.06, 0.0, 5.0, 1, 255)
+    depth = torch.from_numpy(depths[0])
+    rgbp = torch.zeros((ROWS, COLS), dtype=torch.int32)
+    pool = st.pool
+    flat = torch.zeros(pool.sdf.numel() + 1, dtype=torch.float32)
+    shifted = flat[1:].view(pool.sdf.shape)
+    bad = VoxelPool(sdf=shifted, sumsq=pool.sumsq, weight=pool.weight,
+                    rgbp=pool.rgbp)
+    with pytest.raises(ValueError, match="pool.sdf: not 16-byte aligned"):
+        FI.fused_integrate_rows(bad, depth, rgbp, cam_vec, bpos, bptr, bres)
+
+
 # ---------------------------------------------------------------------------
 # on the card: kernel vs twin
 # ---------------------------------------------------------------------------
@@ -228,4 +245,38 @@ def test_kernel_matches_twin_on_card(cuda):
     assert float((pk.sumsq - pt.sumsq).abs().max()) <= 5e-4
     assert torch.equal(fk[:, :3], ft[:, :3])
     # the sumsq flag is a 512-term sum taken in another order
+    torch.testing.assert_close(fk[:, 3], ft[:, 3], rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("subset", ["odd", "even", "one", "every-third"])
+def test_kernel_on_entry_subsets_on_card(cuda, subset):
+    """The res-0 kernel walks 2 entries per CTA: an odd entry count (the
+    last CTA has one), an even one, a single entry, and a non-contiguous
+    subset (every third entry of the window) equal the twin run over the
+    same entries."""
+    cfg, cam, st, depths, rgb, bpos, bptr, bres = _window(cuda)
+    A = bpos.shape[0]
+    n = {"odd": A - 1 + A % 2, "even": A - A % 2, "one": 1,
+         "every-third": None}[subset]
+    sel = (torch.arange(0, A, 3, device=cuda) if n is None
+           else torch.arange(n, device=cuda))
+    bpos, bptr, bres = (x[sel].contiguous() for x in (bpos, bptr, bres))
+    rgbp = pack_rgb(torch.from_numpy(rgb).to(cuda)).contiguous()
+    cam_vec = FI.make_cam_vec(cam, cfg.virtual_voxel_size, cfg.sdf_truncation,
+                              cfg.sdf_truncation_scale, 5.0, 1, 255)
+    pk = make_state(cfg.num_blocks, device=cuda).pool
+    pt = make_state(cfg.num_blocks, device=cuda).pool
+    for d in depths:
+        dd = torch.from_numpy(d).to(cuda)
+        fk = FI.fused_integrate_rows(pk, dd, rgbp, cam_vec, bpos, bptr, bres)
+        ft = FI.fused_integrate_rows_ref(pt, dd, rgbp, cam_vec, bpos, bptr,
+                                         bres)
+    torch.cuda.synchronize()
+    for f in ("weight", "rgbp"):
+        assert torch.equal(getattr(pk, f), getattr(pt, f)), f
+    assert int((pk.weight > 0).sum()) > 0
+    assert float((pk.sdf - pt.sdf).abs().max()) <= 2e-5
+    assert float((pk.sumsq - pt.sumsq).abs().max()) <= 5e-4
+    assert torch.equal(fk[:, :3], ft[:, :3])
     torch.testing.assert_close(fk[:, 3], ft[:, 3], rtol=1e-4, atol=1e-6)

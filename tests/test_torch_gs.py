@@ -163,9 +163,30 @@ def test_blend_wrappers_check_operands():
         B.blend_forward(a.transpose(0, 1).contiguous().transpose(0, 1), v, 2)
     Tf, Cf, mask = B.blend_forward(a, v, 2)
     with pytest.raises(ValueError, match="mask"):
-        B.blend_backward(a, 2, Tf, mask.to(torch.uint8), Tf, Cf)
+        B.blend_backward(a, v, 2, Tf, mask.to(torch.uint8), Tf, Cf)
     with pytest.raises(ValueError, match="gC"):
-        B.blend_backward(a, 2, Tf, mask, Tf, Cf[..., :2].contiguous())
+        B.blend_backward(a, v, 2, Tf, mask, Tf, Cf[..., :2].contiguous())
+
+
+def test_blend_backward_checks_valid_and_mask_alignment():
+    """K5 takes K4's validity (it walks each tile from its last valid
+    slot) and reads the mask 8 bytes per lane: both are checked before
+    any launch, and the CPU path ignores valid."""
+    attr, valid, _ = blend_inputs(0, 3, 4, 2)
+    a, v = torch.from_numpy(attr), torch.from_numpy(valid)
+    Tf, Cf, mask = B.blend_forward(a, v, 2)
+    with pytest.raises(ValueError, match="valid"):
+        B.blend_backward(a, v.to(torch.uint8), 2, Tf, mask, Tf, Cf)
+    with pytest.raises(ValueError, match="valid"):
+        B.blend_backward(a, v[:, :3].contiguous(), 2, Tf, mask, Tf, Cf)
+    flat = torch.zeros(mask.numel() + 1, dtype=torch.int8)
+    shifted = flat[1:].view(mask.shape)
+    shifted.copy_(mask)
+    with pytest.raises(ValueError, match="aligned"):
+        B.blend_backward(a, v, 2, Tf, shifted, Tf, Cf)
+    g = B.blend_backward(a, torch.zeros_like(v), 2, Tf, mask, Tf, Cf)
+    torch.testing.assert_close(
+        g, B.blend_backward_ref(a, 2, Tf, mask, Tf, Cf), atol=0, rtol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -645,7 +666,7 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K", [7, 64, 128])
+@pytest.mark.parametrize("K", [1, 7, 64, 128])
 def test_kernels_match_twins_on_card(cuda, K):
     T, grid_x = 75, 15
     attr, valid, _ = blend_inputs(K, T, K, grid_x)
@@ -659,7 +680,7 @@ def test_kernels_match_twins_on_card(cuda, K):
         np.float32)).to(cuda)
     gC = torch.from_numpy(rng.normal(0, 1, (T, 256, 3)).astype(
         np.float32)).to(cuda)
-    gk = B.blend_backward(a, grid_x, Tk, mk, gT, gC)
+    gk = B.blend_backward(a, v, grid_x, Tk, mk, gT, gC)
     gt = B.blend_backward_ref(a, grid_x, Tk, mk, gT, gC)
     torch.cuda.synchronize()
     assert B.launch_count["blend_forward"] == n4 + 1
@@ -668,3 +689,36 @@ def test_kernels_match_twins_on_card(cuda, K):
     torch.testing.assert_close(Tk, Tt, atol=1e-6, rtol=0)
     torch.testing.assert_close(Ck, Ct, atol=1e-6, rtol=0)
     torch.testing.assert_close(gk, gt, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 7, 64, 128])
+def test_k5_walk_bounds_and_idle_warps_on_card(cuda, K):
+    """K5's walk starts at each tile's last valid slot and skips the steps
+    in which a warp blended nothing: on prefix validity (the rasterizer's)
+    with random counts, a tile with no valid slot and a tile whose
+    Gaussians stay in its top rows, so that warps 3-7 never blend, the
+    gradients equal the twin's within its bound and the rows past a
+    tile's count are zero."""
+    T, grid_x = 30, 6
+    attr, _, _ = blend_inputs(K + 100, T, K, grid_x)
+    rng = np.random.default_rng(K)
+    count = rng.integers(0, K + 1, T)
+    count[0], count[1] = 0, K
+    valid = np.arange(K)[None, :] < count[:, None]
+    attr[1, :, 1] = rng.uniform(0, 3, K)     # tile 1: rows 0-2 only
+    attr[1, :, 4] = 2.0                      # tight in y
+    a = torch.from_numpy(attr).to(cuda)
+    v = torch.from_numpy(valid).to(cuda)
+    Tk, _, mk = B.blend_forward(a, v, grid_x)
+    gT = torch.from_numpy(rng.normal(0, 1, (T, 256)).astype(
+        np.float32)).to(cuda)
+    gC = torch.from_numpy(rng.normal(0, 1, (T, 256, 3)).astype(
+        np.float32)).to(cuda)
+    gk = B.blend_backward(a, v, grid_x, Tk, mk, gT, gC)
+    gt = B.blend_backward_ref(a, grid_x, Tk, mk, gT, gC)
+    torch.cuda.synchronize()
+    assert int(mk[1].sum()) > 0 and int(mk[1, :, 96:].sum()) == 0
+    torch.testing.assert_close(gk, gt, atol=1e-4, rtol=1e-4)
+    past = ~torch.from_numpy(valid).to(cuda)
+    assert torch.equal(gk[past], torch.zeros_like(gk[past]))

@@ -5,6 +5,9 @@ builds without writing into the repo's `native/` directory.
   native loader and all three runners leaves no `jax` and no `mrhash_tpu`
   module in sys.modules; so does importing every module of its Gaussian
   Splatting package and the GS runner.
+- With tqdm missing (the card's machine has none), all five runners
+  import and rgbd_runner's frame loop runs: two in-memory frames through a
+  CPU GeoWrapper, with the plain progress lines in place of the bar.
 - Building the port's host library puts it under the build directory it
   is given and leaves the committed Transvoxel header byte for byte as it
   was (the JAX package regenerates that header next to its own build).
@@ -61,6 +64,46 @@ def test_gs_imports_no_jax_package():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+
+
+_CHECK_NO_TQDM = """
+import sys
+sys.modules["tqdm"] = None          # import tqdm now raises ImportError
+import numpy as np
+import mrhash_tpu_torch.apps.kitti_runner
+import mrhash_tpu_torch.apps.ply_runner
+import mrhash_tpu_torch.apps.rgbd_gs_runner
+import mrhash_tpu_torch.apps.streamer_example
+from mrhash_tpu_torch.apps.rgbd_runner import integrate_frames
+from mrhash_tpu_torch.geowrapper import GeoWrapper
+
+gw = GeoWrapper(sdf_truncation=0.06, sdf_truncation_scale=0.0,
+                integration_weight_sample=1, virtual_voxel_size=0.02,
+                n_frames_invalidate_voxels=0, voxel_extents_scale=1,
+                gs_optimization_param_path="", num_blocks=1 << 10,
+                max_active_blocks=1 << 10, max_alloc_per_frame=1 << 10,
+                max_depth=5.0, profiling=False, device="cpu")
+gw.setCamera(40.0, 40.0, 31.5, 15.5, 32, 64, 0.01, 5.0)
+rng = np.random.default_rng(0)
+depth = np.full((32, 64), 1.5, np.float32)
+rgb = rng.integers(0, 255, (32, 64, 3)).astype(np.uint8)
+frames = [(i, [0.01 * i, 0.0, 0.0], [0.0, 0.0, 0.0, 1.0], depth, rgb)
+          for i in range(2)]
+integrate_frames(gw, frames, end_frame=5)
+print("tqdm" in sys.modules and sys.modules["tqdm"] is None,
+      gw.state.frame, int((gw.state.pool.weight > 0).sum()) > 0)
+"""
+
+
+def test_runners_import_and_loop_without_tqdm():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _CHECK_NO_TQDM], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[-2] == "processing... done, 2 frames", out.stdout
+    assert lines[-1] == "True 2 True", out.stdout
 
 
 def test_native_build_leaves_native_dir_alone(tmp_path, monkeypatch):

@@ -781,6 +781,50 @@ def test_k1_res1_matches_twin_on_card(cuda):
 
 
 @pytest.mark.gpu
+def test_k1_res0_entries_of_mixed_window_on_card(cuda):
+    """K1's res-0 kernel over the res-0 entries of a mixed multi-res
+    window alone: a non-contiguous subset of the window's indices, whose
+    res-1 siblings stay untouched."""
+    cfg = MapConfig(**KW)
+    frames, rgb = _rgbd_frames(translate=True)
+    st = make_state(cfg.num_blocks, device=cuda)
+    rgb_d = torch.from_numpy(rgb).to(cuda)
+    for d, rot, t in frames[:2]:
+        cam = C.with_pose(C.make_camera(*CAM, device=cuda), rot, t)
+        st, _ = pipeline.integrate_rgbd(cfg, st, cam,
+                                        torch.from_numpy(d).to(cuda), rgb_d)
+    d, rot, t = frames[2]
+    cam = C.with_pose(C.make_camera(*CAM, device=cuda), rot, t)
+    pc_depth = C.get_depth(cam, C.compute_cloud(
+        cam, torch.from_numpy(d).to(cuda))).contiguous()
+    _, bpos, bptr, bres = I.compact_active(cfg, st.table, cam)
+    entries = torch.nonzero(bres == 0)[:, 0].contiguous()
+    gaps = entries[1:] - entries[:-1]
+    assert entries.numel() > 10 and int(gaps.max()) > 1
+    cam_vec = FI.make_cam_vec(cam, cfg.virtual_voxel_size, cfg.sdf_truncation,
+                              cfg.sdf_truncation_scale, 5.0, 1, 255)
+    rgbp = pack_rgb(rgb_d).contiguous()
+    pk, pt = _clone_pool(st.pool), _clone_pool(st.pool)
+    fk = torch.full((bpos.shape[0], 4), float("nan"), device=cuda)
+    n0 = FI.launch_count
+    FI._launch(pk, pc_depth, rgbp, cam_vec, bpos, bptr, entries, 0, fk)
+    ft = FI.fused_integrate_rows_ref(pt, pc_depth, rgbp, cam_vec,
+                                     bpos[entries], bptr[entries],
+                                     bres[entries])
+    torch.cuda.synchronize()
+    assert FI.launch_count == n0 + 1
+    for f in ("weight", "rgbp"):
+        assert torch.equal(getattr(pk, f), getattr(pt, f)), f
+    assert int((pk.weight != st.pool.weight).sum()) > 1000
+    assert float((pk.sdf - pt.sdf).abs().max()) <= 2e-5
+    assert float((pk.sumsq - pt.sumsq).abs().max()) <= 5e-4
+    assert torch.equal(fk[entries, :3], ft[:, :3])
+    torch.testing.assert_close(fk[entries, 3], ft[:, 3], rtol=1e-4,
+                               atol=1e-6)
+    assert torch.isnan(fk[bres == 1]).all()
+
+
+@pytest.mark.gpu
 def test_k3_res1_matches_twin_on_card(cuda):
     cfg = MapConfig(**L_KW)
     st = make_state(cfg.num_blocks, cfg.num_buckets, cuda)
