@@ -8,6 +8,7 @@ of the RGB-D frame time against another checkout of the port.
     python3 chip_profile.py --multires
     python3 chip_profile.py --walk
     python3 chip_profile.py --rgbd-ab OTHER_ROOT
+    python3 chip_profile.py --gs-ab OTHER_ROOT
     python3 chip_profile.py --kernels-ab OTHER_ROOT [OTHER_ROOT ...]
 
 The first form drives chip_smoke.py's LiDAR cell
@@ -48,17 +49,23 @@ frame, launches and syncs per frame, the host and device ms of the frame
 step's rgbd.* ranges per frame
 and of the streamer's stream.* ranges per stream event, and the kernels
 and copies that take the most device time.
-The last form times chip_smoke.py's RGB-D cell (120 frames of the
+The --rgbd-ab form times chip_smoke.py's RGB-D cell (120 frames of the
 box-room orbit at 1200x680, no mesh), each run in a fresh process, with
 the mrhash_tpu_torch of OTHER_ROOT (A) and of this checkout (B) in turns
 A B B A A B B A, and prints each run's median frame time over frames
 40-119.
+The --gs-ab form runs chip_smoke.py's phase 6 (the GS path) in fresh
+processes with OTHER_ROOT's mrhash_tpu_torch (A) and this checkout's (B)
+in turns A B B A, and prints each run's peak device memory, PSNR and GS
+frame time.
 The --kernels-ab form builds the kernel library of each OTHER_ROOT (its
 own ops/cuda_lib.py over its own csrc) beside this checkout's, prints
-each one's K1 and K4/K5 registers and spills (nvcc -Xptxas -v), holds each
-one's K1 (res-0 and res-1 paths) and K5 against this checkout's on
-chip_smoke.py's phase-3 inputs (K5 at K = 64 and K = 128), and times them
-in turns by CUDA-graph replay, with the bound each is held to.
+each one's K1, K3 and K4/K5 registers and spills (nvcc -Xptxas -v),
+holds each one's K1 (res-0 and res-1 paths), K3 (res-0, res-1 and the
+mixed multi-res window), K4 and K5 against this checkout's on
+chip_smoke.py's phase-3 inputs (K4 at K = 64, K5 at K = 64 and K = 128),
+and times them in turns by CUDA-graph replay, with the bound each is
+held to.
 Prints the card's name and power limit beside the numbers.  Needs a card.
 """
 import json
@@ -118,6 +125,25 @@ def rgbd_run():
                           mean_ms=statistics.fmean(steady))), flush=True)
 
 
+def _run_in(root, fn):
+    """Runs chip_profile.<fn>() in a fresh process with the
+    mrhash_tpu_torch of `root` first on sys.path; returns its last output
+    line as JSON."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    # chip_smoke / chip_profile from here, mrhash_tpu_torch from root
+    code = (f"import sys; sys.path.insert(0, {here!r}); "
+            "import chip_profile; "
+            f"sys.path.insert(0, {root!r}); "
+            f"chip_profile.{fn}()")
+    out = subprocess.run([sys.executable, "-c", code], cwd=here,
+                         capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"{fn} with {root} failed:\n{out.stderr}")
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec["package"].startswith(root), rec
+    return rec
+
+
 def rgbd_ab(other_root):
     """Runs rgbd_run in fresh processes, A = other_root, B = this checkout,
     in turns A B B A A B B A."""
@@ -125,17 +151,7 @@ def rgbd_ab(other_root):
     roots = {"A": os.path.abspath(other_root), "B": here}
     got = {"A": [], "B": []}
     for name in "ABBAABBA":
-        # chip_smoke / chip_profile from here, mrhash_tpu_torch from root
-        code = (f"import sys; sys.path.insert(0, {here!r}); "
-                "import chip_profile; "
-                f"sys.path.insert(0, {roots[name]!r}); "
-                "chip_profile.rgbd_run()")
-        out = subprocess.run([sys.executable, "-c", code], cwd=here,
-                             capture_output=True, text=True)
-        if out.returncode != 0:
-            raise RuntimeError(f"rgbd run {name} failed:\n{out.stderr}")
-        rec = json.loads(out.stdout.strip().splitlines()[-1])
-        assert rec["package"].startswith(roots[name]), rec
+        rec = _run_in(roots[name], "rgbd_run")
         got[name].append(rec["median_ms"])
         print(f"rgbd {name} ({roots[name]}): median {rec['median_ms']:.3f} "
               f"ms, mean {rec['mean_ms']:.3f} ms", flush=True)
@@ -143,6 +159,37 @@ def rgbd_ab(other_root):
         print(f"rgbd {name}: per-run medians {sorted(got[name])}, median of "
               f"runs {statistics.median(got[name]):.3f} ms "
               f"[{S.nvidia_smi_line()}]")
+
+
+def gs_run():
+    """chip_smoke.py's phase 6 with whichever mrhash_tpu_torch is first on
+    sys.path; prints a JSON line with its peak device memory, PSNR and GS
+    frame ms."""
+    import numpy as np
+    train, holdout, more = S.gs_frames(np.random.default_rng(0))
+    _, run = S.run_gs_path(train, holdout, more)
+    import mrhash_tpu_torch
+    print(json.dumps(dict(package=os.path.dirname(mrhash_tpu_torch.__file__),
+                          peak_gib=run["peak_gib"], psnr=run["psnr"],
+                          psnr_final=run["psnr_final"],
+                          median_ms=run["median_ms"])), flush=True)
+
+
+def gs_ab(other_root):
+    """Runs gs_run in fresh processes, A = other_root, B = this checkout,
+    in turns A B B A: phase 6's peak device memory and PSNR of each."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    roots = {"A": os.path.abspath(other_root), "B": here}
+    smi = S.nvidia_smi_line()
+    for name in "ABBA":
+        root = roots[name]
+        rec = _run_in(root, "gs_run")
+        print(f"gs {name} ({root}): peak {rec['peak_gib']:.4f} GiB "
+              f"({rec['peak_gib'] * 2**30 / 1e6:.1f} MB), PSNR "
+              f"{rec['psnr']['train']:.2f} / {rec['psnr']['holdout']:.2f} "
+              f"dB, after GSFinalOpt {rec['psnr_final']['train']:.2f} / "
+              f"{rec['psnr_final']['holdout']:.2f} dB, GS frame median "
+              f"{rec['median_ms']:.3f} ms [{smi}]", flush=True)
 
 
 def gs_profile(smi):
@@ -385,13 +432,14 @@ def _root_library(root):
 
 
 def _ptxas_lines(root):
-    """nvcc -Xptxas -v over ROOT's K1 and K4/K5 sources: each kernel's
+    """nvcc -Xptxas -v over ROOT's K1, K3 and K4/K5 sources: each kernel's
     registers, spills and stack."""
     import tempfile
     mod, _ = _root_library(root)
     out = []
     with tempfile.TemporaryDirectory() as tmp:
-        for src in ("fused_integrate.cu", "blend_tiles.cu"):
+        for src in ("fused_integrate.cu", "fused_integrate_points.cu",
+                    "blend_tiles.cu"):
             r = subprocess.run(
                 [mod._nvcc(), *mod.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
                  os.path.join(tmp, src + ".o"), os.path.join(mod.CSRC, src)],
@@ -402,17 +450,36 @@ def _ptxas_lines(root):
     return out
 
 
+def _packed_mask(mod):
+    """Whether ROOT's K4 writes the bit-packed mask (i32[T,K,8]) rather
+    than the i8 [T,K,256] one that an earlier K5 packed itself."""
+    with open(os.path.join(mod.CSRC, "blend_tiles.cu")) as f:
+        return "pack_mask_row" not in f.read()
+
+
+def _k3_one_launch(mod):
+    """Whether ROOT's K3 serves both resolutions in one launch (n0, n1)
+    rather than one launch per resolution (n, res)."""
+    return "mrhash_fused_integrate_points_floor" in mod.SIGNATURES
+
+
 def kernels_ab(roots):
-    """K1's res-0 and res-1 paths and K5 (K = 64 and 128) built from each
-    of `roots` and from this checkout, on chip_smoke.py's phase-3 inputs
-    (K1: the frame-41 window of the RGB-D orbit, single-res for res 0 and
-    multi-res for res 1; K5: the training render of frame 1 of the GS
-    scene), each held against this checkout's kernel once and then timed
-    in turns (CUDA-graph replay of REPEAT calls, CUDA events), a version's
-    pool updates on its own copy."""
+    """K1's res-0 and res-1 paths, K3's res-0 and res-1 paths and the
+    mixed multi-res window, K4 (K = 64) and K5 (K = 64 and 128) built from
+    each of `roots` and from this checkout, on chip_smoke.py's phase-3
+    inputs (K1: the frame-41 window of the RGB-D orbit, single-res for res
+    0 and multi-res for res 1; K3: the scan-21 window of the LiDAR scans,
+    single-res and multi-res; K4, K5: the training render of frame 1 of
+    the GS scene), each held against this checkout's kernel once and then
+    timed in turns (CUDA-graph replay of REPEAT calls, CUDA events), a
+    version's pool updates on its own copy.  A K3 of one launch per
+    resolution takes two launches for the mixed window."""
+    import ctypes
+
     import torch
 
     from mrhash_tpu_torch.core.state import pack_rgb
+    from mrhash_tpu_torch.gs import blend as B
     from mrhash_tpu_torch.gs import rasterizer as R
     from mrhash_tpu_torch.gs.container import _cam_dict
     from mrhash_tpu_torch.ops import camera as C
@@ -501,7 +568,77 @@ def kernels_ab(roots):
             bound_ms=S.bound(nbytes, n * nvox * 60)[0])
         del pools, flags, src
 
-    # K5 on the GS training render of frame 1
+    # K3 on the scan-21 window: res 0 over the single-res window, res 1
+    # over the res-1 entries of the multi-res window, and that whole window
+    from mrhash_tpu_torch.ops import integrate as I
+    clouds = [S.lidar_cloud(S.lidar_pose(i), rng) for i in range(S.L_FRAMES)]
+    for multires in (False, True):
+        gw = S.make_lidar_wrapper("cuda", clouds[0], multires)
+        for i in range(S.L_COMPARE_AT):
+            S.feed_lidar(gw, i, clouds)
+        cfg = gw.cfg
+        cam = C.with_pose(gw.camera, gw.curr_rot,
+                          S.lidar_pose(S.L_COMPARE_AT))
+        points = torch.from_numpy(clouds[S.L_COMPARE_AT]).to(dev)
+        keys, valid = I.alloc_candidates_points(
+            cfg, cam, points, cfg.dda_steps(cfg.max_integration_distance))
+        I.alloc_blocks(cfg, gw.state.table, keys, valid, gw.state.frame)
+        _, bpos, bptr, bres = I.compact_active(cfg, gw.state.table)
+        img, pix, r_vox, ptr, res, consts = I.points_window(
+            cfg, cam, points, bpos, bptr, bres)
+        src = gw.state.pool
+        del gw
+        A = ptr.shape[0]
+        e0 = torch.nonzero(res == 0).flatten()
+        e1 = torch.nonzero(res == 1).flatten()
+        order = torch.argsort(res, stable=True)
+        cf = [ctypes.c_float(float(v)) for v in consts]
+        cases = [("k3_mixed", order, e0.numel(), e1.numel())] if multires \
+            else [("k3_res0", e0, e0.numel(), 0)]
+        if multires:
+            cases.insert(0, ("k3_res1", e1, 0, e1.numel()))
+        for name, ent, n0, n1 in cases:
+            pools = dict(zip(roots, S.clone_pools(src, len(roots))))
+            flags = {r: torch.zeros((A, 4), device=dev) for r in roots}
+
+            def k3(r):
+                mod, lib = libs[r]
+                q, f = pools[r], flags[r]
+                tail = [*cf, p(q.sdf), p(q.sumsq), p(q.weight), p(f)]
+                fn = lib.mrhash_fused_integrate_points_window
+                if _k3_one_launch(mod):
+                    return lambda: mod.check(fn(
+                        p(img), p(pix), p(r_vox), p(ptr), p(ent), n0, n1,
+                        *tail, cuda_lib.stream_of(img)), r)
+                parts = [(ent[:n0], n0, 0), (ent[n0:], n1, 1)]
+
+                def two():
+                    for sub, n, kind in parts:
+                        if n:
+                            mod.check(fn(p(img), p(pix), p(r_vox), p(ptr),
+                                         p(sub), n, kind, *tail,
+                                         cuda_lib.stream_of(img)), r)
+                return two
+            for r in roots:
+                k3(r)()
+            torch.cuda.synchronize()
+            sub = tuple(t[ent] for t in (ptr, res))
+            for r in roots:
+                err = S.window_error([pools[r], pools[here]], *sub,
+                                     ("sdf", "sumsq", "weight"))
+                assert all(v == 0 for v in err.values()), (r, err)
+                assert torch.equal(flags[r][ent, :3], flags[here][ent, :3])
+            upd, wgt = S.window_count(pools[here], src, *sub)
+            nvox = (n0 * 512 + n1 * 64)
+            t = in_turns({r: k3(r) for r in roots})
+            result[name] = dict(
+                ms=t, entries=[n0, n1], updated=upd,
+                bound_ms=S.bound(S.k3_bytes(n0 + n1, nvox / (n0 + n1), wgt,
+                                            upd), nvox * 15)[0])
+            del pools, flags
+        del src
+
+    # K4 and K5 on the GS training render of frame 1
     train, _, _ = S.gs_frames(np.random.default_rng(0))
     gw = S.make_gs_wrapper("cuda")
     for f in train:
@@ -518,6 +655,35 @@ def kernels_ab(roots):
         T = valid.shape[0]
         c = S.blend_case(attr, valid, gx, b["grid_y"], bg, gt, S.ROWS,
                          S.COLS)
+        masks = {True: c["mk"], False: B.unpack_mask(c["mk"])}
+        if K == S.GS_K:
+            fwd = {r: (torch.empty((T, 256), device=dev),
+                       torch.empty((T, 256, 3), device=dev),
+                       torch.empty_like(masks[_packed_mask(libs[r][0])]))
+                   for r in roots}
+
+            def k4(r):
+                mod, lib = libs[r]
+                args = [p(attr), p(valid), T, K, gx,
+                        *(p(x) for x in fwd[r])]
+                return lambda: mod.check(lib.mrhash_blend_forward(
+                    *args, cuda_lib.stream_of(attr)), r)
+            for r in roots:
+                k4(r)()
+            torch.cuda.synchronize()
+            for r in roots:
+                tf, cf_, m = fwd[r]
+                assert torch.equal(tf, fwd[here][0]), r
+                assert torch.equal(cf_, fwd[here][1]), r
+                bits = B.unpack_mask(m) if _packed_mask(libs[r][0]) else m
+                assert torch.equal(bits, masks[False]), r
+            t = in_turns({r: k4(r) for r in roots})
+            result["k4_K64"] = dict(
+                ms=t, tiles=T, valid_slots=c["slots"],
+                warp_steps=c["walked4"],
+                exit_warp_steps=c["walked"] - c["walked4"],
+                bound_ms=S.bound(S.k4_bytes(T, K), c["slots"] * 256 * 30)[0])
+            del fwd
         outs = {r: torch.empty((T, K, 9), device=dev) for r in roots}
 
         def k5(r):
@@ -525,8 +691,9 @@ def kernels_ab(roots):
             head = [p(attr)]
             if len(mod.SIGNATURES["mrhash_blend_backward"]) == 11:
                 head.append(p(valid))    # K5 that walks from the last valid
-            args = [*head, T, K, gx, p(c["Tk"]), p(c["mk"]), p(c["gT"]),
-                    p(c["gC"]), p(outs[r])]
+            args = [*head, T, K, gx, p(c["Tk"]),
+                    p(masks[_packed_mask(mod)]), p(c["gT"]), p(c["gC"]),
+                    p(outs[r])]
             # the stream is read at each call: a CUDA-graph capture runs
             # on a side stream
             return lambda: mod.check(lib.mrhash_blend_backward(
@@ -537,13 +704,15 @@ def kernels_ab(roots):
         for r in roots:
             torch.testing.assert_close(outs[r], outs[here], atol=1e-4,
                                        rtol=1e-4)
+            print(f"k5_K{K} {r}: max |diff| from this checkout's "
+                  f"{float((outs[r] - outs[here]).abs().max())}", flush=True)
         t = in_turns({r: k5(r) for r in roots})
         result[f"k5_K{K}"] = dict(
             ms=t, tiles=T, valid_slots=c["slots"], warp_steps=c["walked"],
             busy_warp_steps=c["busy"],
             bound_ms=S.bound(S.k5_bytes(T, K, c["slots"]),
                              c["slots"] * 256 * 70)[0])
-        del b, attr, valid, c, outs
+        del b, attr, valid, c, outs, masks
     for name, rec in result.items():
         for r in roots:
             print(f"{name} {r}: {rec['ms'][r]:.4f} ms (bound "
@@ -566,6 +735,8 @@ def main():
 
     if len(sys.argv) == 3 and sys.argv[1] == "--rgbd-ab":
         return rgbd_ab(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--gs-ab":
+        return gs_ab(sys.argv[2])
     if len(sys.argv) >= 3 and sys.argv[1] == "--kernels-ab":
         return kernels_ab(sys.argv[2:])
     smi = S.nvidia_smi_line()
@@ -652,12 +823,14 @@ def main():
                                                         bpos, bptr, bres)
     entries = torch.arange(bpos.shape[0], device="cuda")
     flags = torch.empty((bpos.shape[0], FIP.N_FLAGS), device="cuda")
-    FIP._launch(st.pool, img, pix, r_vox, ptr, entries, 0, consts, flags)
+    n0 = bpos.shape[0]
+    FIP._launch(st.pool, img, pix, r_vox, ptr, entries, n0, consts, flags)
     torch.cuda.synchronize()
     reps = 200
     t0 = time.perf_counter()
     for _ in range(reps):
-        FIP._launch(st.pool, img, pix, r_vox, ptr, entries, 0, consts, flags)
+        FIP._launch(st.pool, img, pix, r_vox, ptr, entries, n0, consts,
+                    flags)
     host_us = (time.perf_counter() - t0) / reps * 1e6
     torch.cuda.synchronize()
     print(f"K3 host cost per launch {host_us:.2f} us over {bpos.shape[0]} "

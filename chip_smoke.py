@@ -15,7 +15,8 @@ Phases (any failure raises: non-zero exit, no result line):
                per-block patch origins; K1's res-1 path: the multi-res
                RGB-D path after 40 frames; K3 and its res-1 path: the LiDAR
                path, one resolution and multi-res, after 20 scans at
-               64x1024; K4, K5: the GS training render of frame 1 of phase
+               64x1024, the res-1 entries alone and the whole multi-res
+               window in one launch; K4, K5: the GS training render of frame 1 of phase
                6's scene, 1200x680, K = 64, and K5 again at GSFinalOpt's
                cap, K = 128), then timed in turns (twin,
                kernel, library, library, kernel, twin) by CUDA-graph replay
@@ -61,8 +62,10 @@ Phases (any failure raises: non-zero exit, no result line):
                serializeGrid -> deserializeGrid round trip.
 After the runs no jax and no mrhash_tpu module may be loaded.  The last
 lines are the kernels' JSON record (K1 and K3 with res1_* figures beside
-their res-0 ones, K5 with k128_* figures at K = 128), the card's name and
-power limit, and
+their res-0 ones, K3 also with the mixed window's one launch and the
+res-1 grid's empty-kernel floor, K4 with the warp-steps it walks and
+those its early exit leaves, K5 with k128_* figures at K = 128), the
+card's name and power limit, and
 {"ok": true, "device": {...}}.
 
 Each kernel's bound_ms is the larger of its bytes over 3.35 TB/s and its
@@ -210,18 +213,19 @@ def graphed(fn):
     return graph.replay
 
 
-def time_in_turns(kernel, twin, library=None):
+def time_in_turns(kernel, twin, library=None, **extra):
     """Median ms per call of each version, timed with CUDA events in turns
-    (twin, kernel, library, library, kernel, twin) after one warm-up call
-    of each.  A turn replays REPEAT calls captured in one CUDA graph, so
-    every version is timed on the device with no host launch cost between
-    its launches.  `kernel` is the wrapper's launcher, past the wrapper's
-    checks: the index-range check syncs with the device.  Returns
-    {"kernel": ms, "twin": ms, "library": ms or None}."""
+    (twin, kernel, library, extra..., then the same backwards) after one
+    warm-up call of each.  A turn replays REPEAT calls captured in one CUDA
+    graph, so every version is timed on the device with no host launch
+    cost between its launches.  `kernel` is the wrapper's launcher, past
+    the wrapper's checks: the index-range check syncs with the device.
+    Returns {"kernel": ms, "twin": ms, "library": ms or None, **extra}."""
     import torch
     turns = {"twin": graphed(twin), "kernel": graphed(kernel)}
     if library is not None:
         turns["library"] = graphed(library)
+    turns.update({n: graphed(f) for n, f in extra.items()})
     names = list(turns)
     order = names + names[::-1]
     ms = {n: [] for n in names}
@@ -680,15 +684,28 @@ def feed_lidar(gw, i, clouds):
     gw.compute()
 
 
+def k3_bytes(n, nvox, weighted, updated):
+    """K3's bytes over n entries of nvox voxels: pix, r_vox, sdf and weight
+    (16 B) read per voxel of the entries' windows; sumsq (4 B) read per
+    weighted voxel and 12 B written per updated voxel; the range image,
+    ptr and the entry list read once; flags f32[n,4] written."""
+    return (n * nvox * 16 + weighted * 4 + updated * 12
+            + L_ROWS * L_COLS * 4 + n * (4 + 8 + 16))
+
+
 def compare_lidar_kernel(clouds, multires=False):
     """Drive the LiDAR slice L_COMPARE_AT scans, then hold K3 against its
     twin on the next scan's window, range image and projection: sdf,
     sumsq, weight and the flags but the sumsq sum must be equal.  Times the
-    res-0 path over the window's res-0 entries, or with multires the res-1
-    path over its res-1 entries, against the twin over the same entries."""
+    res-0 path over the window's res-0 entries (one launch, n1 = 0), or
+    with multires the res-1 path over its res-1 entries (n0 = 0, held
+    against the twin there too), the whole mixed window in one launch, and
+    an empty kernel over the res-1 path's grid, against the twin over the
+    res-0 or res-1 entries."""
     import torch
 
     from mrhash_tpu_torch.ops import camera as C
+    from mrhash_tpu_torch.ops import cuda_lib
     from mrhash_tpu_torch.ops import fused_integrate_points as FIP
     from mrhash_tpu_torch.ops import integrate as I
 
@@ -708,6 +725,7 @@ def compare_lidar_kernel(clouds, multires=False):
     src = gw.state.pool
     pools = clone_pools(src)
     del gw
+    c0, c1 = FIP.launch_count, FIP.res1_launch_count
     fk = FIP.fused_integrate_points_rows(pools[0], img, pix, r_vox, ptr, res,
                                          consts)
     ft = FIP.fused_integrate_points_rows_ref(pools[1], img, pix, r_vox, ptr,
@@ -715,6 +733,8 @@ def compare_lidar_kernel(clouds, multires=False):
     torch.cuda.synchronize()
     err = window_error(pools, ptr, res, ("sdf", "sumsq", "weight"))
     A, n1 = ptr.shape[0], int(res.sum())
+    assert (FIP.launch_count - c0, FIP.res1_launch_count - c1) == (
+        int(A > n1), int(n1 > 0)), "K3: one launch for the window"
     kind = 1 if multires else 0
     e = torch.nonzero(res == kind).flatten()
     sub = tuple(t[e].contiguous() for t in (pix, r_vox, ptr, res))
@@ -727,24 +747,48 @@ def compare_lidar_kernel(clouds, multires=False):
     assert torch.equal(fk[:, :3], ft[:, :3]), "K3 flags differ"
     torch.testing.assert_close(fk[:, 3], ft[:, 3], rtol=1e-4, atol=1e-6)
     assert upd_k > (2000 if multires else 50000), "K3 integrated too little"
+    upd_0, wgt_0 = window_count(pools[0], src, ptr[res == 0], res[res == 0])
+    n0_e = 0 if multires else e.numel()
+    flags = torch.empty((A, FIP.N_FLAGS), device=dev)
+    if multires:
+        # the res-1 path alone (n0 = 0) on a fresh copy, against the twin
+        # over the same entries
+        solo = clone_pools(src, 1)[0]
+        FIP._launch(solo, img, pix, r_vox, ptr, e, 0, consts, flags)
+        torch.cuda.synchronize()
+        err1 = window_error([solo, pools[1]], *sub[2:],
+                            ("sdf", "sumsq", "weight"))
+        assert all(v == 0 for v in err1.values()), err1
+        assert torch.equal(flags[e, :3], ft[e, :3]), "K3 res-1 flags"
     # the twin's constants as a device tensor, so that its graph holds no
     # host-to-device copy
     c_dev = torch.tensor(consts, dtype=torch.float32, device=dev)
-    flags = torch.empty((A, FIP.N_FLAGS), device=dev)
+    extra = {}
+    if multires:
+        order = torch.argsort(res, stable=True)
+        lib = cuda_lib.library()
+        extra = dict(
+            mixed=lambda: FIP._launch(pools[0], img, pix, r_vox, ptr, order,
+                                      A - n1, consts, flags),
+            floor=lambda: cuda_lib.check(
+                lib.mrhash_fused_integrate_points_floor(
+                    0, e.numel(), cuda_lib.stream_of(img)), "floor"))
     t = time_in_turns(
-        lambda: FIP._launch(pools[0], img, pix, r_vox, ptr, e, kind, consts,
+        lambda: FIP._launch(pools[0], img, pix, r_vox, ptr, e, n0_e, consts,
                             flags),
         lambda: FIP.fused_integrate_points_rows_ref(pools[1], img, *sub,
-                                                    c_dev))
-    # pix, r_vox, sdf and weight (16 B) read per voxel of the entries'
-    # windows; sumsq (4 B) read per weighted voxel and 12 B written per
-    # updated voxel; the range image, ptr and the entry list read once;
-    # flags f32[n,4] written.  ~15 f32 operations per voxel
+                                                    c_dev), **extra)
+    # ~15 f32 operations per voxel
     n, nvox = e.numel(), (64 if multires else 512)
-    nbytes = (n * nvox * 16 + wgt_k * 4 + upd_k * 12 + L_ROWS * L_COLS * 4
-              + n * (4 + 8 + 16))
+    nbytes = k3_bytes(n, nvox, wgt_k, upd_k)
     rec = kernel_record(t, max(err.values()), nbytes, n * nvox * 15)
     rec.update(window_blocks=A, res1_blocks=n1, updated=upd_k)
+    if multires:
+        mixed_bytes = nbytes + k3_bytes(A - n1, 512, wgt_0, upd_0) - (
+            L_ROWS * L_COLS * 4)
+        rec.update(mixed_ms=t["mixed"], floor_ms=t["floor"],
+                   mixed_bound_ms=bound(mixed_bytes, (
+                       (A - n1) * 512 + n1 * 64) * 15)[0])
     return rec
 
 
@@ -952,15 +996,22 @@ def compare_small_gs(devices=("cpu", "cuda")):
     assert max(q95.values()) <= 1e-5 and max(err.values()) <= 2e-3, err
 
 
+def k4_bytes(T, K):
+    """K4's bytes: attr (36 B) and valid (1 B) read and the mask (32 B, 256
+    bits) written per (tile, k); T and C (16 B) written per pixel."""
+    return T * K * (36 + 1 + 32) + T * 256 * 16
+
+
 def k5_bytes(T, K, slots):
     """K5's bytes: attr and mask rows of the valid slots read, the
     gradient of every slot written, Tfin, gT and gC read per pixel."""
-    return slots * 292 + T * K * 36 + T * 256 * 20
+    return slots * (36 + 32) + T * K * 36 + T * 256 * 20
 
 
 def blend_case(attr, valid, gx, gy, bg, gt, rows, cols):
     """K4 and K5 against their twins on one binned render: the K4 outputs,
-    the cotangents of the summed L1 loss against `gt`, and the errors."""
+    the cotangents of the summed L1 loss against `gt`, the errors, and
+    the warp-steps each kernel walks."""
     import torch
 
     from mrhash_tpu_torch.gs import blend as B
@@ -978,28 +1029,34 @@ def blend_case(attr, valid, gx, gy, bg, gt, rows, cols):
     gk = B.blend_backward(attr, valid, gx, Tk, mk, gT, gC)
     gt_ = B.blend_backward_ref(attr, gx, Tk, mk, gT, gC)
     torch.cuda.synchronize()
-    flips = int((mk != mt).sum())
+    bits = B.unpack_mask(mk)
+    flips = int((bits != B.unpack_mask(mt)).sum())
     e4 = max(float((Tk - Tt).abs().max()), float((Ck - Ct).abs().max()))
     e5 = float((gk - gt_).abs().max())
     slots = int(valid.sum())
-    blended = int((mk != 0).sum())
-    # (tile, k, warp of 32 pixels) steps K5 walks, and those with a blended
-    # pixel (the rest it skips)
+    blended = int(bits.sum())
+    # (tile, k, 32 pixels) steps K5 walks (each tile up to its last valid
+    # slot), those with a blended pixel (the rest it skips), and those K4
+    # walks: its warp of pixels 32 w + i and 128 + 32 w + i leaves at the
+    # exit condition of the last of its 64 pixels to reach it
     last = torch.where(valid, torch.arange(1, K + 1, device=valid.device),
                        0).amax(1)
     walked = int(last.sum()) * 8
-    busy = int((mk.view(T, K, 8, 32) != 0).any(-1).sum())
+    busy = int((mk != 0).sum())
+    exits = B.exit_steps(attr, valid, gx).view(T, 2, 4, 32).amax((1, 3))
+    walked4 = 2 * int(torch.minimum(exits, last[:, None]).sum())
     log(f"compare K4 at K {K}: {T} tiles, {slots} valid slots, {blended} "
         f"blended (tile, k, pixel); mask flips {flips}, max |diff| "
-        f"Tfin/Cfin {e4}")
+        f"Tfin/Cfin {e4}; warp steps walked {walked4}, left by the early "
+        f"exit {walked - walked4} of {walked}")
     log(f"compare K5 at K {K}: max |diff| {e5} (largest |grad| "
         f"{float(gt_.abs().max())}); warp steps walked {walked}, with a "
         f"blended pixel {busy}")
-    assert flips == 0 and e4 <= 1e-6, (flips, e4)
+    assert torch.equal(mk, mt) and flips == 0 and e4 <= 1e-6, (flips, e4)
     torch.testing.assert_close(gk, gt_, atol=1e-4, rtol=1e-4)
     assert blended > 100000, "K4 blended almost nothing"
     return dict(Tk=Tk, mk=mk, gT=gT, gC=gC, e4=e4, e5=e5, slots=slots,
-                walked=walked, busy=busy)
+                walked=walked, busy=busy, walked4=walked4)
 
 
 def compare_blend_kernels(train, rows=ROWS, cols=COLS):
@@ -1043,22 +1100,22 @@ def compare_blend_kernels(train, rows=ROWS, cols=COLS):
         t5 = time_in_turns(
             lambda: B._launch_backward(attr, valid, gx, Tk, mk, gT, gC),
             lambda: B.blend_backward_ref(attr, gx, Tk, mk, gT, gC))
-        # K4: attr (36 B) and valid (1 B) read and the mask (256 B) written
-        # per (tile, k); T and C (16 B) written per pixel; ~30 f32
-        # operations per valid (tile, k, pixel).  K5: attr and the mask
-        # (292 B) read per valid (tile, k) (K4 blends no invalid slot, so
-        # the others' mask rows are zeros the function need not read) and
-        # the gradient (36 B) written per (tile, k); Tfin, gT and gC (20 B)
-        # read per pixel; ~70 operations per valid (tile, k, pixel)
+        # K4: k4_bytes, ~30 f32 operations per valid (tile, k, pixel).
+        # K5: attr and the mask (68 B) read per valid (tile, k) (K4 blends
+        # no invalid slot, so the others' mask rows are zeros the function
+        # need not read) and the gradient (36 B) written per (tile, k);
+        # Tfin, gT and gC (20 B) read per pixel; ~70 operations per valid
+        # (tile, k, pixel)
         slots = c["slots"]
         k5 = kernel_record(t5, c["e5"], k5_bytes(T, K, slots),
                            slots * 256 * 70)
         k5.update(tiles=T, K=K, valid_slots=slots, warp_steps=c["walked"],
                   busy_warp_steps=c["busy"])
         if t4 is not None:
-            k4 = kernel_record(t4, c["e4"], T * K * 293 + T * 256 * 16,
-                               slots * 256 * 30)
-            k4.update(tiles=T, K=K, valid_slots=slots)
+            k4 = kernel_record(t4, c["e4"], k4_bytes(T, K), slots * 256 * 30)
+            k4.update(tiles=T, K=K, valid_slots=slots,
+                      warp_steps=c["walked4"],
+                      exit_warp_steps=c["walked"] - c["walked4"])
             recs.append(k4)
         recs.append(k5)
         del b, attr, valid, c, Tk, mk, gT, gC
@@ -1587,7 +1644,13 @@ def run_gs_path(train, holdout, more, device="cuda", rows=ROWS, cols=COLS,
         f"{psnr0['holdout']:.2f} dB; after GSFinalOpt train "
         f"{psnr1['train']:.2f} dB, holdout {psnr1['holdout']:.2f} dB "
         f"(tools/bench_gs.py bar: {GS_PSNR_REF})")
-    log(f"gs: peak device memory {peak / 2**30:.3f} GiB")
+    n_tiles = ((rows + 15) // 16) * ((cols + 15) // 16)
+    log(f"gs: peak device memory {peak / 2**30:.3f} GiB; the blend mask a "
+        f"render keeps for its backward: {n_tiles * GS_K * 32 / 1e6:.1f} MB "
+        f"at K = {GS_K}, {n_tiles * GS_FINAL_K * 32 / 1e6:.1f} MB at K = "
+        f"{GS_FINAL_K} (in an i8 layout: "
+        f"{n_tiles * GS_K * 256 / 1e6:.1f} / "
+        f"{n_tiles * GS_FINAL_K * 256 / 1e6:.1f} MB)")
     assert FI.launch_count == len(train) + len(more), FI.launch_count
     assert per_frame["blend_forward"] >= 1 and per_frame[
         "blend_backward"] >= 1, per_frame
@@ -1671,9 +1734,11 @@ def main():
     k3r = compare_lidar_kernel(clouds, multires=True)
     torch.cuda.empty_cache()
     log(f"compare: K3 res-1 {k3r['ms']:.4f} ms (twin {k3r['plain_ms']:.4f} "
-        f"ms, bound {k3r['bound_ms']:.4f} ms, {k3r['bytes']} B) over "
+        f"ms, bound {k3r['bound_ms']:.4f} ms, {k3r['bytes']} B, an empty "
+        f"kernel over its grid {k3r['floor_ms']:.4f} ms) over "
         f"{k3r['res1_blocks']} res-1 blocks of a {k3r['window_blocks']}-block "
-        f"window [{smi}]")
+        f"window; the whole window in one launch {k3r['mixed_ms']:.4f} ms "
+        f"(bound {k3r['mixed_bound_ms']:.4f} ms) [{smi}]")
     k4, k5, k5f = compare_blend_kernels(train)
     torch.cuda.empty_cache()
     for name, k in (("K4", k4), ("K5", k5), ("K5", k5f)):
@@ -1776,6 +1841,16 @@ def main():
                 "B6 (sample_image_pallas_v2, marked EXPERIMENT, NOT USED)")
         if name in w_launches:
             entry["walk_launches"] = w_launches[name]
+        if name == "fused_integrate_points_rows":
+            entry.update(mixed_ms=k3r["mixed_ms"],
+                         mixed_bound_ms=k3r["mixed_bound_ms"],
+                         res1_floor_ms=k3r["floor_ms"])
+            entry["launches_note"] = (
+                "one launch serves both resolutions: a multi-res scan's "
+                "launch counts in multires_launches (res 0) and "
+                "res1_launches (res 1) alike")
+        if name == "blend_forward":
+            entry.update({k: k4[k] for k in ("warp_steps", "exit_warp_steps")})
         if name == "blend_backward":   # at GSFinalOpt's cap, K = 128
             entry.update({"k128_" + k: k5f[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})

@@ -55,11 +55,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "window_flags.cuh"
+
 namespace {
 
 constexpr int kCamLen = 32;
-constexpr float kFar = 3e38f;
-constexpr unsigned kAll = 0xffffffffu;
 
 // res 0: 128 threads per entry, 4 x-consecutive voxels each, and
 // kRes0Entries entries per CTA walked in turn
@@ -147,44 +147,6 @@ __device__ __forceinline__ void combine(const Cam& c, float s, int32_t pk,
   w = (int32_t)fminf(c.w_max, w0f + c.w_samp);
   rgbp = (int32_t)(r_m + g_m * 256.0f + b_m * 65536.0f);
 }
-
-// One entry's flags over its window, accumulated voxel by voxel from
-// no_flags(): min |sdf| over weighted voxels, max weight, weight sum, sumsq
-// sum over weighted voxels.  (A plain aggregate: it also lives in shared
-// memory.)
-struct Flags {
-  float min_sdf, ssq;
-  int max_w, sum_w;
-  __device__ __forceinline__ void add(float sdf, float ssq_v, int32_t w) {
-    min_sdf = fminf(min_sdf, (w > 0) ? fabsf(sdf) : kFar);
-    ssq += (w > 0) ? ssq_v : 0.0f;
-    max_w = max(max_w, w);
-    sum_w += w;
-  }
-  __device__ __forceinline__ void add(const Flags& o) {
-    min_sdf = fminf(min_sdf, o.min_sdf);
-    ssq += o.ssq;
-    max_w = max(max_w, o.max_w);
-    sum_w += o.sum_w;
-  }
-  __device__ __forceinline__ void warp_reduce() {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      min_sdf = fminf(min_sdf, __shfl_xor_sync(kAll, min_sdf, o));
-      ssq += __shfl_xor_sync(kAll, ssq, o);
-      max_w = max(max_w, __shfl_xor_sync(kAll, max_w, o));
-      sum_w += __shfl_xor_sync(kAll, sum_w, o);
-    }
-  }
-  __device__ __forceinline__ void store(float* f) const {
-    f[0] = min_sdf;
-    f[1] = (float)max_w;
-    f[2] = (float)sum_w;
-    f[3] = ssq;
-  }
-};
-
-__device__ __forceinline__ Flags no_flags() { return {kFar, 0.0f, 0, 0}; }
 
 __device__ __forceinline__ void load_cam(const float* __restrict__ cam,
                                          Cam* s_cam) {

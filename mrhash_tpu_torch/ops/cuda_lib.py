@@ -47,11 +47,13 @@ SIGNATURES = {
     # img5, rows, cols, r0, c0, lr, lc, n_blocks, out, stream
     "mrhash_sample_image5": [_vp, _i, _i, _vp, _vp, _vp, _vp, _i64, _vp,
                              _vp],
-    # img, pix, r_vox, ptr, entries, n_entries, res, t0, t1, max_int,
-    # w_sample, w_max, vvs, sdf, sumsq, weight, flags, stream
+    # img, pix, r_vox, ptr, entries, n0, n1, t0, t1, max_int, w_sample,
+    # w_max, vvs, sdf, sumsq, weight, flags, stream
     "mrhash_fused_integrate_points_window": [_vp, _vp, _vp, _vp, _vp, _i64,
-                                             _i, _f, _f, _f, _f, _f, _f,
+                                             _i64, _f, _f, _f, _f, _f, _f,
                                              _vp, _vp, _vp, _vp, _vp],
+    # n0, n1, stream
+    "mrhash_fused_integrate_points_floor": [_i64, _i64, _vp],
     # attr, valid, n_tiles, K, grid_x, tfin, cfin, mask, stream
     "mrhash_blend_forward": [_vp, _vp, _i, _i, _i, _vp, _vp, _vp, _vp],
     # attr, valid, n_tiles, K, grid_x, tfin, mask, gt, gc, gout, stream

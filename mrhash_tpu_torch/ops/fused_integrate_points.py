@@ -4,24 +4,30 @@ Replaces mrhash_tpu/ops/fused_integrate.py::_kernel_sph, its plain branch
 and its packed res-1 branch (the Pallas kernel behind
 fused_integrate_points_pallas).  The CUDA source is
 csrc/fused_integrate_points.cu; its header comment gives the design.  In
-short, one thread per voxel of each window entry (a 512-thread CTA serves
-one res-0 entry or 8 res-1 entries of 64 voxels): load the f32 range at
-the voxel's precomputed pixel, gate on the truncation band, apply the
-Welford update in place at ptr + local, then reduce the entry's flags over
-its own window.  The spherical projection that gives each lane its
-(pix, r_vox) runs in torch before the launch
-(ops/integrate.py::project_window_sph).
+short, one launch serves the whole window, res-0 entries first: a res-0
+entry is one 256-thread CTA of 2 consecutive voxels per thread (8-byte
+accesses of pix, r_vox and the pool fields); a res-1 entry is 64
+threads of one voxel, 4 entries per CTA.  Each thread loads the f32
+range at its voxels' precomputed pixels, gates on the truncation band,
+applies the Welford update and writes its voxels back in place where any
+updated; each entry then reduces its flags over its own window.  The
+spherical projection that gives each lane its (pix, r_vox) runs in torch
+before the launch (ops/integrate.py::project_window_sph).
 
 Bound on the card: bytes — 16 B read per voxel of the window (pix, r_vox,
 sdf, weight), 4 B read (sumsq) per weighted voxel and 12 B written per
-updated voxel.  The TPU kernel's 3-channel bf16 range split, one-hot MXU
-sampling and VMEM patch windows existed to keep the range image in VMEM;
-on Hopper the 256 KB image stays in L2 and each voxel loads its own pixel.
+updated voxel.  The kernel reads sumsq for every voxel and writes whole
+voxel pairs at res 0, more than that count, for fewer dependent round trips
+(PORT_NOTES.md P45).  The TPU kernel's 3-channel bf16 range split, one-hot
+MXU sampling and VMEM patch windows existed to keep the range image in
+VMEM; on Hopper the 256 KB image stays in L2 and each voxel loads its own
+pixel.
 
 `fused_integrate_points_rows` takes the plain PyTorch twin
 `fused_integrate_points_rows_ref` for CPU tensors only; for CUDA tensors it
-launches the kernel or raises.  `launch_count` counts launches of the res-0
-kernel, `res1_launch_count` those of the res-1 kernel.
+launches the kernel or raises.  `launch_count` counts launches that served
+res-0 entries, `res1_launch_count` launches that served res-1 entries (a
+launch over a mixed window counts in both).
 """
 from __future__ import annotations
 
@@ -97,7 +103,8 @@ def fused_integrate_points_rows(pool, img, pix, r_vox, ptr, res, consts):
     range; ptr i32[A] and res i32[A] the entries' disjoint windows inside
     the pool; consts (t0, t1, max_integration_distance, w_sample, w_max,
     virtual_voxel_size).  Updates the windows in place and returns flags
-    f32[A,4]."""
+    f32[A,4].  pix, r_vox and the pool fields must be 8-byte aligned (the
+    kernel moves 2 voxels per access)."""
     dev = img.device
     H_, W_ = img.shape
     N = pool.sdf.shape[0]
@@ -111,6 +118,11 @@ def fused_integrate_points_rows(pool, img, pix, r_vox, ptr, res, consts):
     for f, dt in (("sdf", torch.float32), ("sumsq", torch.float32),
                   ("weight", torch.int32)):
         e(getattr(pool, f), f"pool.{f}", dt, (N, LANES), dev)
+    for name, t in (("pix", pix), ("r_vox", r_vox), ("pool.sdf", pool.sdf),
+                    ("pool.sumsq", pool.sumsq),
+                    ("pool.weight", pool.weight)):
+        if t.data_ptr() % 8:
+            raise ValueError(f"{name}: not 8-byte aligned")
     if len(consts) != 6:
         raise ValueError("consts: expected (t0, t1, max_int, w_sample, "
                          "w_max, vvs)")
@@ -124,30 +136,27 @@ def fused_integrate_points_rows(pool, img, pix, r_vox, ptr, res, consts):
         raise ValueError(f"fused_integrate_points_rows: no kernel for {dev}")
     flags = torch.empty((A, N_FLAGS), dtype=torch.float32, device=dev)
     order = torch.argsort(res, stable=True)      # res-0 entries first
-    for kind, entries in ((0, order[:A - n1]), (1, order[A - n1:])):
-        _launch(pool, img, pix, r_vox, ptr, entries, kind, consts, flags)
+    _launch(pool, img, pix, r_vox, ptr, order, A - n1, consts, flags)
     return flags
 
 
-def _launch(pool, img, pix, r_vox, ptr, entries, kind, consts, flags):
-    """Launch K3's res-`kind` kernel over the window entries `entries` (i64,
-    all of that resolution) of CUDA operands that
+def _launch(pool, img, pix, r_vox, ptr, entries, n0, consts, flags):
+    """Launch K3 once over the window entries `entries` (i64): the first
+    n0 at res 0, the rest at res 1, of CUDA operands that
     fused_integrate_points_rows has validated (the checks sync, so kernel
     timings call this directly); writes their rows of `flags`."""
-    n = entries.shape[0]
-    if n == 0:
+    n1 = entries.shape[0] - n0
+    if n0 + n1 == 0:
         return
     lib = cuda_lib.library()
     p = cuda_lib.ptr
     with torch.cuda.device(img.device):
         rc = lib.mrhash_fused_integrate_points_window(
-            p(img), p(pix), p(r_vox), p(ptr), p(entries), n, kind,
+            p(img), p(pix), p(r_vox), p(ptr), p(entries), n0, n1,
             *(ctypes.c_float(float(v)) for v in consts),
             p(pool.sdf), p(pool.sumsq), p(pool.weight), p(flags),
             cuda_lib.stream_of(img))
     cuda_lib.check(rc, "fused_integrate_points_rows")
     global launch_count, res1_launch_count
-    if kind == 0:
-        launch_count += 1
-    else:
-        res1_launch_count += 1
+    launch_count += int(n0 > 0)
+    res1_launch_count += int(n1 > 0)

@@ -41,6 +41,8 @@ import json
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from mrhash_tpu_torch.gs import blend as B
 from mrhash_tpu_torch.gs import losses as L
@@ -84,8 +86,9 @@ def _port_blend(attr, valid, grid_x):
     a = torch.from_numpy(attr).requires_grad_()
     Tf, Cf, mask = B.BlendTiles.apply(a, torch.from_numpy(valid), grid_x)
     (torch.sum(Cf * Cf) + 2.0 * torch.sum(Tf)).backward()
-    return Tf.detach().numpy(), Cf.detach().numpy(), mask.numpy(), \
-        a.grad.numpy()
+    # the reference's i8 [T,K,256] layout, for the comparisons
+    return Tf.detach().numpy(), Cf.detach().numpy(), \
+        B.unpack_mask(mask).numpy(), a.grad.numpy()
 
 
 def _jax_split(attr, valid):
@@ -170,8 +173,8 @@ def test_blend_wrappers_check_operands():
 
 def test_blend_backward_checks_valid_and_mask_alignment():
     """K5 takes K4's validity (it walks each tile from its last valid
-    slot) and reads the mask 8 bytes per lane: both are checked before
-    any launch, and the CPU path ignores valid."""
+    slot) and reads the mask words 16 bytes per access: both are checked
+    before any launch, and the CPU path ignores valid."""
     attr, valid, _ = blend_inputs(0, 3, 4, 2)
     a, v = torch.from_numpy(attr), torch.from_numpy(valid)
     Tf, Cf, mask = B.blend_forward(a, v, 2)
@@ -179,7 +182,7 @@ def test_blend_backward_checks_valid_and_mask_alignment():
         B.blend_backward(a, v.to(torch.uint8), 2, Tf, mask, Tf, Cf)
     with pytest.raises(ValueError, match="valid"):
         B.blend_backward(a, v[:, :3].contiguous(), 2, Tf, mask, Tf, Cf)
-    flat = torch.zeros(mask.numel() + 1, dtype=torch.int8)
+    flat = torch.zeros(mask.numel() + 1, dtype=torch.int32)
     shifted = flat[1:].view(mask.shape)
     shifted.copy_(mask)
     with pytest.raises(ValueError, match="aligned"):
@@ -187,6 +190,97 @@ def test_blend_backward_checks_valid_and_mask_alignment():
     g = B.blend_backward(a, torch.zeros_like(v), 2, Tf, mask, Tf, Cf)
     torch.testing.assert_close(
         g, B.blend_backward_ref(a, 2, Tf, mask, Tf, Cf), atol=0, rtol=0)
+
+
+def test_pack_unpack_mask_round_trip():
+    """The bit-packed mask (bit i of word w is pixel 32 w + i) round-trips
+    through the reference's i8 layout, bit 31 (an int32's sign bit)
+    included: a word with only pixel 31 set is -2^31, a full word -1."""
+    rng = np.random.default_rng(0)
+    m = torch.from_numpy(rng.uniform(0, 1, (5, 7, 256)) < 0.5)
+    m[0, 0] = False
+    m[0, 0, 31] = True
+    m[0, 1] = True
+    m[1, 2, 32 * np.arange(8) + 31] = True
+    words = B.pack_mask(m)
+    assert words.dtype == torch.int32 and words.shape == (5, 7, 8)
+    assert int(words[0, 0, 0]) == -2 ** 31 and int(words[0, 0, 1:].abs().sum()) == 0
+    assert bool((words[0, 1] == -1).all())
+    assert bool((words[1, 2] < 0).all())
+    back = B.unpack_mask(words)
+    assert back.dtype == torch.int8 and back.shape == m.shape
+    assert torch.equal(back != 0, m)
+    assert torch.equal(B.pack_mask(back), words)
+
+
+@settings(max_examples=300, deadline=None, database=None)
+@given(T=st.floats(min_value=float(np.float32(9.9e-5)),
+                  max_value=float(np.float32(1.02e-4)), width=32),
+       alpha=st.one_of(
+           st.sampled_from([float(np.float32(1.0 / 255.0)), 0.99,
+                            float(np.nextafter(np.float32(1.0 / 255.0),
+                                               np.float32(1.0)))]),
+           st.floats(min_value=float(np.float32(1.0 / 255.0)),
+                     max_value=float(np.float32(0.99)), width=32)))
+def test_k4_exit_condition_is_exact(T, alpha):
+    """K4 leaves a warp's walk once fl(T * fl(1 - 1/255)) < 1e-4 holds for
+    its pixels.  Then no alpha the gate admits (1/255 <= alpha <= 0.99)
+    gives fl(T * fl(1 - alpha)) >= 1e-4, in f32 as the kernel and the
+    twin compute it, so the pixel can never blend again."""
+    T32, a32 = torch.tensor(T, dtype=torch.float32), torch.tensor(
+        alpha, dtype=torch.float32)
+    if not bool(a32 >= B.ALPHA_THRESHOLD) or not bool(a32 <= 0.99):
+        return
+    assert B.EXIT_FACTOR == float(np.float32(1.0) - np.float32(1.0 / 255.0))
+    if bool(T32 * B.EXIT_FACTOR < B.ALPHA_MIN):
+        assert bool(T32 * (1.0 - a32) < B.ALPHA_MIN)
+    # the same in numpy's f32
+    t, a = np.float32(T), np.float32(alpha)
+    if t * np.float32(B.EXIT_FACTOR) < np.float32(B.ALPHA_MIN):
+        assert t * (np.float32(1.0) - a) < np.float32(B.ALPHA_MIN)
+
+
+def saturating_inputs(seed, T, K, grid_x):
+    """blend_inputs with opacities near 0.99, and tile 1 made of flat
+    Gaussians (conic 0: every pixel gets alpha = opacity) whose first two
+    opacities put T into [1e-4, 1e-4 / fl(1 - 1/255)), where K4's exit
+    condition holds for all its pixels (K >= 2)."""
+    attr, valid, pixf = blend_inputs(seed, T, K, grid_x)
+    rng = np.random.default_rng(seed + 1)
+    attr[..., 5] = rng.uniform(0.9, 1.2, (T, K))
+    valid[1] = True
+    attr[1, :, 2:5] = 0.0
+    attr[1, :, 5] = 0.99
+    one = np.float32(1.0)
+    t1 = one * (one - np.float32(0.99))
+    for op in np.arange(0.98, 0.9905, 1e-6, dtype=np.float32):
+        t2 = np.float32(t1 * (one - op))
+        if t2 >= np.float32(1e-4) and (
+                np.float32(t2 * np.float32(B.EXIT_FACTOR)) < np.float32(1e-4)):
+            break
+    else:
+        raise AssertionError("no opacity puts T into the exit window")
+    if K > 1:
+        attr[1, 1, 5] = op
+    return attr, valid, pixf
+
+
+def test_twin_mask_is_silent_after_exit():
+    """On opacities near 0.99, no pixel of the twin's mask blends after
+    K4's exit condition first holds for it, so a warp that leaves its
+    walk there loses no bit; tile 1's pixels all reach the condition
+    after two steps."""
+    T, K, grid_x = 8, 24, 4
+    attr, valid, _ = saturating_inputs(2, T, K, grid_x)
+    a, v = torch.from_numpy(attr), torch.from_numpy(valid)
+    _, _, mask = B.blend_forward_ref(a, v, grid_x)
+    steps = B.exit_steps(a, v, grid_x)
+    bits = B.unpack_mask(mask) != 0                    # [T, K, 256]
+    after = torch.arange(K)[None, :, None] >= steps[:, None, :]
+    assert int((steps < K).sum()) >= 256
+    assert bool((steps[1] == 2).all())
+    assert not bool((bits & after).any())
+    assert int(bits[1, :2].sum()) == 512 and not bool(bits[1, 2:].any())
 
 
 # ---------------------------------------------------------------------------
@@ -718,7 +812,47 @@ def test_k5_walk_bounds_and_idle_warps_on_card(cuda, K):
     gk = B.blend_backward(a, v, grid_x, Tk, mk, gT, gC)
     gt = B.blend_backward_ref(a, grid_x, Tk, mk, gT, gC)
     torch.cuda.synchronize()
-    assert int(mk[1].sum()) > 0 and int(mk[1, :, 96:].sum()) == 0
+    bits = B.unpack_mask(mk)
+    assert int(bits[1].sum()) > 0 and int(bits[1, :, 96:].sum()) == 0
     torch.testing.assert_close(gk, gt, atol=1e-4, rtol=1e-4)
     past = ~torch.from_numpy(valid).to(cuda)
     assert torch.equal(gk[past], torch.zeros_like(gk[past]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 7, 64, 128])
+def test_k4_exit_and_empty_tiles_on_card(cuda, K):
+    """K4 against its twin where warps leave their walk early (opacities
+    near 0.99, and tile 1's pixels all reach the exit condition after two
+    steps) and where tiles have no valid slot or a prefix of them: the
+    mask words equal, Tfin and Cfin within 1e-6, words past each tile's
+    last valid slot zero; K5 on that mask within its bound."""
+    T, grid_x = 40, 8
+    attr, valid, _ = saturating_inputs(K + 7, T, K, grid_x)
+    rng = np.random.default_rng(K)
+    count = rng.integers(0, K + 1, T)
+    count[0], count[1], count[2] = 0, K, 0
+    valid[2:] = np.arange(K)[None, :] < count[2:, None]
+    valid[0] = False
+    a = torch.from_numpy(attr).to(cuda)
+    v = torch.from_numpy(valid).to(cuda)
+    Tk, Ck, mk = B.blend_forward(a, v, grid_x)
+    Tt, Ct, mt = B.blend_forward_ref(a, v, grid_x)
+    steps = B.exit_steps(a, v, grid_x)
+    gT = torch.from_numpy(rng.normal(0, 1, (T, 256)).astype(
+        np.float32)).to(cuda)
+    gC = torch.from_numpy(rng.normal(0, 1, (T, 256, 3)).astype(
+        np.float32)).to(cuda)
+    gk = B.blend_backward(a, v, grid_x, Tk, mk, gT, gC)
+    gt = B.blend_backward_ref(a, grid_x, Tk, mk, gT, gC)
+    torch.cuda.synchronize()
+    if K >= 2:
+        assert bool((steps[1] == 2).all())
+    assert torch.equal(mk, mt)
+    torch.testing.assert_close(Tk, Tt, atol=1e-6, rtol=0)
+    torch.testing.assert_close(Ck, Ct, atol=1e-6, rtol=0)
+    past = ~torch.from_numpy(np.cumsum(valid[:, ::-1], 1)[:, ::-1] > 0).to(
+        cuda)
+    assert int(mk[past].abs().sum()) == 0
+    assert int(mk[0].abs().sum()) == 0 and bool((Tk[0] == 1).all())
+    torch.testing.assert_close(gk, gt, atol=1e-4, rtol=1e-4)

@@ -308,6 +308,40 @@ def test_wrapper_rejects_bad_operands():
                                             CONSTS)
 
 
+def test_wrapper_rejects_misaligned_operands():
+    """K3 moves 2 voxels per 8-byte access of pix, r_vox and the pool
+    fields: an operand that does not start on 8 bytes is refused before
+    any launch."""
+    from mrhash_tpu_torch.core.state import VoxelPool
+    pool = make_state(4).pool
+    img = torch.ones((ROWS, COLS))
+    pix = torch.zeros((2, 512), dtype=torch.int32)
+    r_vox = torch.ones((2, 512))
+    ptr = torch.tensor([0, 512], dtype=torch.int32)
+    res = torch.zeros(2, dtype=torch.int32)
+
+    def shifted(t):
+        flat = torch.zeros(t.numel() + 1, dtype=t.dtype)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    with pytest.raises(ValueError, match="pix: not 8-byte aligned"):
+        FIP.fused_integrate_points_rows(pool, img, shifted(pix), r_vox, ptr,
+                                        res, CONSTS)
+    with pytest.raises(ValueError, match="r_vox: not 8-byte aligned"):
+        FIP.fused_integrate_points_rows(pool, img, pix, shifted(r_vox), ptr,
+                                        res, CONSTS)
+    for f in ("sdf", "sumsq", "weight"):
+        bad = VoxelPool(**{g: shifted(getattr(pool, g)) if g == f
+                           else getattr(pool, g) for g in VoxelPool.FIELDS})
+        with pytest.raises(ValueError, match=f"pool.{f}: not 8-byte"):
+            FIP.fused_integrate_points_rows(bad, img, pix, r_vox, ptr, res,
+                                            CONSTS)
+    flags = FIP.fused_integrate_points_rows(pool, img, pix, r_vox, ptr, res,
+                                            CONSTS)
+    assert flags.shape == (2, 4)
+
+
 # ---------------------------------------------------------------------------
 # (c) + (d) the fused step and the whole slice
 # ---------------------------------------------------------------------------

@@ -849,3 +849,61 @@ def test_k3_res1_matches_twin_on_card(cuda):
     assert int((pk.weight != st.pool.weight).sum()) > 1000
     assert torch.equal(fk[:, :3], ft[:, :3])
     torch.testing.assert_close(fk[:, 3], ft[:, 3], rtol=1e-4, atol=1e-6)
+
+
+def _k3_window(n0, n1, seed, device):
+    """A K3 window of n0 res-0 entries (whole rows) and n1 res-1 entries
+    (64-lane windows, up to 8 per row), in random order, over a pool with
+    random content; pix on a 8x64 range image (some -1, some empty
+    pixels), r_vox within the truncation band of about half the lanes."""
+    rng = np.random.default_rng(seed)
+    N = n0 + (n1 + 7) // 8 + 2
+    pool = make_state(N, device=device).pool
+    pool.weight.copy_(torch.from_numpy(
+        rng.integers(0, 3, (N, 512)).astype(np.int32)))
+    pool.sdf.copy_(torch.from_numpy(
+        rng.uniform(-0.4, 0.4, (N, 512)).astype(np.float32)))
+    pool.sumsq.copy_(torch.from_numpy(
+        rng.uniform(0, 1, (N, 512)).astype(np.float32)))
+    rows = rng.permutation(N)
+    ptr = [int(r) * 512 for r in rows[:n0]]
+    ptr += [int(rows[n0 + i // 8]) * 512 + 64 * (i % 8) for i in range(n1)]
+    res = np.array([0] * n0 + [1] * n1)
+    perm = rng.permutation(n0 + n1)
+    img = rng.uniform(0, 10, (8, 64)).astype(np.float32)
+    img[0, :5] = 0.0
+    pix = rng.integers(-1, 8 * 64, (n0 + n1, 512)).astype(np.int32)
+    r_vox = (img.reshape(-1)[np.maximum(pix, 0)]
+             + rng.uniform(-0.6, 0.6, pix.shape)).astype(np.float32)
+    t = (lambda x, dt: torch.from_numpy(np.ascontiguousarray(x)).to(
+        device=device, dtype=dt))
+    return (pool, t(img, torch.float32), t(pix, torch.int32),
+            t(r_vox, torch.float32),
+            t(np.array(ptr)[perm], torch.int32), t(res[perm], torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n0,n1", [(0, 13), (21, 0), (5, 13), (3, 1),
+                                   (0, 8)])
+def test_k3_mixed_window_one_launch_on_card(cuda, n0, n1):
+    """K3 serves a window of both resolutions in one launch, res-0
+    entries first: pools and flags equal to the twin's (the sumsq flag
+    within rounding), one launch counted per resolution it served, for
+    windows with no res-0 or no res-1 entry and counts that are not a
+    multiple of the entries a CTA takes."""
+    pool, img, pix, r_vox, ptr, res = _k3_window(n0, n1, 7 * n0 + n1, cuda)
+    consts = (0.4, 0.0, 40.0, 1.0, 255.0, 0.2)
+    pk, pt = _clone_pool(pool), _clone_pool(pool)
+    c0, c1 = FIP.launch_count, FIP.res1_launch_count
+    fk = FIP.fused_integrate_points_rows(pk, img, pix, r_vox, ptr, res,
+                                         consts)
+    ft = FIP.fused_integrate_points_rows_ref(pt, img, pix, r_vox, ptr, res,
+                                             consts)
+    torch.cuda.synchronize()
+    assert (FIP.launch_count, FIP.res1_launch_count) == (
+        c0 + (n0 > 0), c1 + (n1 > 0))
+    for f in ("sdf", "sumsq", "weight"):
+        assert torch.equal(getattr(pk, f), getattr(pt, f)), f
+    assert int((pk.weight != pool.weight).sum()) > 100
+    assert torch.equal(fk[:, :3], ft[:, :3])
+    torch.testing.assert_close(fk[:, 3], ft[:, 3], rtol=1e-4, atol=1e-6)
