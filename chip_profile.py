@@ -7,6 +7,7 @@ of the RGB-D frame time against another checkout of the port.
     python3 chip_profile.py --gs
     python3 chip_profile.py --multires
     python3 chip_profile.py --walk
+    python3 chip_profile.py --mesh
     python3 chip_profile.py --rgbd-ab OTHER_ROOT
     python3 chip_profile.py --gs-ab OTHER_ROOT
     python3 chip_profile.py --kernels-ab OTHER_ROOT [OTHER_ROOT ...]
@@ -49,6 +50,15 @@ frame, launches and syncs per frame, the host and device ms of the frame
 step's rgbd.* ranges per frame
 and of the streamer's stream.* ranges per stream event, and the kernels
 and copies that take the most device time.
+The --mesh form times the device mesh sweep (extractMesh under
+MRHASH_HOST_MESH=0, the chunk-batch path) at several sizes of its window
+(MESH_CHUNK blocks gated at once) and its cell batches (MESH_MAX_CELLS),
+results being the same at every size: on chip_smoke.py's phase-7 map
+(the multi-res box room after 120 frames, streamed out) and on phase 9's
+walk (the 270 frames down the tube, streamed out); seconds, the sweep's
+phases, windows, gated cells and batches, peak device memory, and for
+the default sizes, under torch.profiler, launches and host syncs per cell
+batch.
 The --rgbd-ab form times chip_smoke.py's RGB-D cell (120 frames of the
 box-room orbit at 1200x680, no mesh), each run in a fresh process, with
 the mrhash_tpu_torch of OTHER_ROOT (A) and of this checkout (B) in turns
@@ -720,6 +730,79 @@ def kernels_ab(roots):
     print(json.dumps(dict(card=smi, kernels=result)), flush=True)
 
 
+def mesh_profile(smi):
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mrhash_tpu_torch import geowrapper
+
+    default = (geowrapper.MESH_MAX_CELLS, geowrapper.MESH_CHUNK)
+
+    def sweep(gw, name, max_cells, chunk, profiled=False):
+        geowrapper.MESH_MAX_CELLS, geowrapper.MESH_CHUNK = max_cells, chunk
+        try:
+            if not profiled:
+                rec, tris = S.device_sweep(gw)
+            else:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    rec, tris = S.device_sweep(gw)
+                count = {e.key: e.count for e in prof.key_averages()}
+                launches = sum(count.get(k, 0) for k in (
+                    "cudaLaunchKernel", "cudaLaunchKernelExC"))
+                syncs = sum(c for k, c in count.items()
+                            if "Synchronize" in k)
+                print(f"mesh {name} profiled: {launches} launches, {syncs} "
+                      f"syncs: {launches / rec['cell_batches']:.1f} and "
+                      f"{syncs / rec['cell_batches']:.1f} per cell batch, "
+                      f"{launches / rec['windows']:.1f} and "
+                      f"{syncs / rec['windows']:.1f} per window", flush=True)
+        finally:
+            geowrapper.MESH_MAX_CELLS, geowrapper.MESH_CHUNK = default
+        print(f"mesh {name} max_cells 2^{max_cells.bit_length() - 1} chunk "
+              f"2^{chunk.bit_length() - 1}{' (profiled)' if profiled else ''}"
+              f": {rec['s']:.2f} s (insert {rec['insert_s']:.2f}, extract "
+              f"{rec['extract_s']:.2f}, clear {rec['clear_s']:.2f}, host "
+              f"{rec['host_s']:.2f}), {rec['batches']} chunk batches, "
+              f"{rec['windows']} windows, {rec['cells']} gated cells in "
+              f"{rec['cell_batches']} cell batches, {rec['triangles']} "
+              f"triangles, peak {rec['peak_gib']:.3f} GiB [{smi}]",
+              flush=True)
+        torch.cuda.empty_cache()
+        return tris[0].shape[0]
+
+    rng = np.random.default_rng(0)
+    rgb = rng.integers(0, 255, (S.ROWS, S.COLS, 3)).astype(np.uint8)
+    depths = [S.room_depth(*S.orbit_pose(i)[:2], rng)
+              for i in range(S.ORBIT)]
+    gw = S.make_wrapper("cuda", multires=True)
+    for i in range(S.N_FRAMES):
+        S.feed(gw, i, depths, rgb)
+    gw.streamAllOut()
+    sizes = [(1 << 16, 1 << 13), (1 << 18, 1 << 13), (1 << 20, 1 << 13),
+             (1 << 21, 1 << 13), (1 << 20, 1 << 12), (1 << 20, 1 << 14),
+             (1 << 20, 1 << 15)]
+    # the first sweep pays the allocator's growth: it runs twice
+    counts = {sweep(gw, "multires", *sz) for sz in [default] + sizes}
+    sweep(gw, "multires", *default, profiled=True)
+    assert len(counts) == 1, counts
+    del gw
+    torch.cuda.empty_cache()
+
+    wd = S.walk_depths()
+    wrgb = np.random.default_rng(0).integers(0, 255, (S.ROWS, S.COLS, 3)
+                                             ).astype(np.uint8)
+    gw = S.make_walk_wrapper("cuda")
+    for i in range(S.W_WARM + S.W_TIMED):
+        S.walk_frame(gw, S.W_STEP * i, i, wd, wrgb)
+    gw.streamAllOut()
+    counts = {sweep(gw, "walk", *sz) for sz in (
+        default, (1 << 18, 1 << 13), (1 << 20, 1 << 13), (1 << 21, 1 << 13),
+        (1 << 20, 1 << 15))}
+    assert len(counts) == 1, counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -747,6 +830,8 @@ def main():
         return multires_profile(smi)
     if sys.argv[1:] == ["--walk"]:
         return walk_profile(smi)
+    if sys.argv[1:] == ["--mesh"]:
+        return mesh_profile(smi)
     rng = np.random.default_rng(0)
     clouds = [S.lidar_cloud(S.lidar_pose(i), rng) for i in range(S.L_FRAMES)]
 

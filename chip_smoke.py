@@ -59,9 +59,26 @@ Phases (any failure raises: non-zero exit, no result line):
                K1's and K2's launches; then 40 frames back, turned around
                (stream-in), the duplicate ratio, extractMesh over grid +
                device (vertices on the tube's walls), streamAllOut and a
-               serializeGrid -> deserializeGrid round trip.
+               serializeGrid -> deserializeGrid round trip;
+ 10. device mesh — the device sweep (extractMesh with MRHASH_HOST_MESH=0,
+               ops/meshing.py): phase 3's small scenes meshed on the card
+               and on the CPU (the direct path, then after streamAllOut the
+               chunk-batch path; equal counts, vertices within 1e-5) and
+               raycast on both (hits equal, depth within 1e-4); 40 frames
+               of phase 4 with viewer_active (FPS, and the last tick's mesh
+               equal to _extract_resident of its frame's map, whose sweep
+               torch.profiler counts: launches and syncs per cell batch);
+               then phases 7's and 9's maps, meshed by the device sweep
+               after their host sweeps: seconds, phases, gated cells,
+               batches and peak memory of each, no block dropped, no batch
+               over budget, the triangles matched one to one to the host
+               sweep's in 9-D (positions within 1e-3, colours within 0.5;
+               on the walk as many as a minute allows, in a seeded order),
+               and on the walk equal vertex, face and triangle counts and
+               the vertices on the tube's walls; the figures on one
+               {"mesh": ...} line.
 After the runs no jax and no mrhash_tpu module may be loaded.  The last
-lines are the kernels' JSON record (K1 and K3 with res1_* figures beside
+lines are the mesh figures' JSON line, the kernels' JSON record (K1 and K3 with res1_* figures beside
 their res-0 ones, K3 also with the mixed window's one launch and the
 res-1 grid's empty-kernel floor, K4 with the warp-steps it walks and
 those its early exit leaves, K5 with k128_* figures at K = 128), the
@@ -75,6 +92,7 @@ the pool lanes that only an update needs read and written only where
 this run updated them, and the blend's operations (and K5's attribute
 and mask reads) only for the valid (tile, k) slots of this render.
 """
+import contextlib
 import json
 import os
 import statistics
@@ -166,10 +184,11 @@ def room_depth(rot, trans, rng, rows=ROWS, cols=COLS, fx=FX, fy=FY, cx=CX,
     return np.clip(depth, 0.0, 29.0).astype(np.float32)
 
 
-def make_wrapper(device, multires=False):
+def make_wrapper(device, multires=False, viewer=False):
     """The port's GeoWrapper at configurations/replica.cfg's settings, with
     bench.py's capacities; multires: tools/bench_extra.py::bench_multires's
-    (sdf_var_threshold 1.0, 2^13 allocations per frame)."""
+    (sdf_var_threshold 1.0, 2^13 allocations per frame); viewer: with
+    viewer_active."""
     from mrhash_tpu_torch.geowrapper import GeoWrapper
     gw = GeoWrapper(sdf_truncation=0.07, sdf_truncation_scale=0.0,
                     integration_weight_sample=1, virtual_voxel_size=0.01,
@@ -180,7 +199,7 @@ def make_wrapper(device, multires=False):
                     num_blocks=1 << 19, num_buckets=1 << 15,
                     max_active_blocks=1 << 17,
                     max_alloc_per_frame=1 << (13 if multires else 14),
-                    profiling=False, device=device)
+                    viewer_active=viewer, profiling=False, device=device)
     gw.setCamera(FX, FY, CX, CY, ROWS, COLS, 0.01, 30.0)
     return gw
 
@@ -552,13 +571,14 @@ def host_map(st, cfg):
                                     weight=g["w"], rgbp=g["rgb"])
 
 
-def compare_small_scene(multires=False):
-    """The whole slice on the card against the slice on the CPU (where the
-    tests hold it against the JAX reference): 4 frames of a 64x256 scene
-    with starvation + GC (multires: coarsening from frame 1 on, the
-    threshold of tests/test_torch_multires.py); same key set and
-    resolutions, weight and rgbp exact, sdf within 2e-5, sumsq within
-    5e-4."""
+SMALL_CAM = (80.0, 80.0, 127.5, 31.5, 64, 256, 0.01, 5.0)
+
+
+def small_scene(dev, multires=False):
+    """Phase 3's small scene on `dev`: 4 frames of a 64x256 relief with
+    starvation + GC through core/pipeline (multires: coarsening from frame
+    1 on, the threshold of tests/test_torch_multires.py).  Returns (cfg,
+    state, the first frame's camera)."""
     import numpy as np
     import torch
 
@@ -566,7 +586,7 @@ def compare_small_scene(multires=False):
     from mrhash_tpu_torch.core.state import MapConfig, make_state
     from mrhash_tpu_torch.ops import camera as C
 
-    rows, cols = 64, 256
+    rows, cols = SMALL_CAM[4], SMALL_CAM[5]
     cfg = MapConfig(virtual_voxel_size=0.02, sdf_truncation=0.06,
                     max_integration_distance=5.0,
                     n_frames_invalidate_voxels=2, num_blocks=1 << 11,
@@ -580,16 +600,28 @@ def compare_small_scene(multires=False):
     frames = [((base + rng.normal(0, 0.01, base.shape)).astype(np.float32),
                np.array([0.03 * i, 0.01 * i, 0.0], np.float32))
               for i in range(4)]
+    st = make_state(cfg.num_blocks, device=dev)
+    cam0 = C.make_camera(*SMALL_CAM, device=dev)
+    for d, t in frames:
+        cam = C.with_pose(cam0, np.eye(3, dtype=np.float32), t)
+        st, _ = pipeline.integrate_rgbd(
+            cfg, st, cam, torch.from_numpy(d).to(dev),
+            torch.from_numpy(rgb).to(dev))
+    return cfg, st, cam0
+
+
+def compare_small_scene(multires=False):
+    """The whole slice on the card against the slice on the CPU (where the
+    tests hold it against the JAX reference): 4 frames of a 64x256 scene
+    with starvation + GC (multires: coarsening from frame 1 on, the
+    threshold of tests/test_torch_multires.py); same key set and
+    resolutions, weight and rgbp exact, sdf within 2e-5, sumsq within
+    5e-4."""
+    import numpy as np
+
     maps = {}
     for dev in ("cpu", "cuda"):
-        st = make_state(cfg.num_blocks, device=dev)
-        cam0 = C.make_camera(80.0, 80.0, 127.5, 31.5, rows, cols, 0.01, 5.0,
-                             device=dev)
-        for d, t in frames:
-            cam = C.with_pose(cam0, np.eye(3, dtype=np.float32), t)
-            st, _ = pipeline.integrate_rgbd(
-                cfg, st, cam, torch.from_numpy(d).to(dev),
-                torch.from_numpy(rgb).to(dev))
+        cfg, st, _ = small_scene(dev, multires)
         maps[dev] = host_map(st, cfg)
     (pc, rc, mc), (pg, rg, mg) = maps["cpu"], maps["cuda"]
     assert np.array_equal(pc, pg), "block key sets differ"
@@ -1188,6 +1220,13 @@ def walk_frame(gw, z, k, depths, rgb, back=False):
     gw.compute()
 
 
+def on_tube_wall(v):
+    """Which vertices lie within 3 cm of the tube's walls."""
+    import numpy as np
+    return np.minimum(np.abs(np.abs(v[:, 0]) - W_HALF),
+                      np.abs(np.abs(v[:, 1]) - W_HALF)) < 0.03
+
+
 def walk_depths(rows=ROWS, cols=COLS, f=FX):
     """The 8 depth variants (bench_walk's canned frames), each rendered
     from its own offset; a turned camera uses the mirrored image."""
@@ -1264,7 +1303,7 @@ def run_walk(device="cuda", rows=ROWS, cols=COLS, f=FX, warm=W_WARM,
     camera).  Then the duplicate ratio, extractMesh over grid + device
     (vertices on the tube's walls), streamAllOut, and a serializeGrid ->
     deserializeGrid round trip into a fresh wrapper.  Returns (launches,
-    numbers)."""
+    numbers, the wrapper, whose map is then all in its host grid)."""
     import numpy as np
     import torch
 
@@ -1347,11 +1386,10 @@ def run_walk(device="cuda", rows=ROWS, cols=COLS, f=FX, warm=W_WARM,
     with tempfile.TemporaryDirectory() as tmp:
         gw.extractMesh(os.path.join(tmp, "mesh.ply"))
     mesh_s = time.perf_counter() - t0
-    v = gw.getVertices()
-    on = np.minimum(np.abs(np.abs(v[:, 0]) - W_HALF),
-                    np.abs(np.abs(v[:, 1]) - W_HALF)) < 0.03
-    log(f"walk mesh (grid + device): {v.shape[0]} vertices, "
-        f"{float(on.mean()):.4f} within 3 cm of the tube's walls "
+    v, n_faces = gw.getVertices(), gw.getFaces().shape[0]
+    on = on_tube_wall(v)
+    log(f"walk mesh (grid + device): {v.shape[0]} vertices, {n_faces} "
+        f"faces, {float(on.mean()):.4f} within 3 cm of the tube's walls "
         f"({mesh_s:.1f} s)")
     assert v.shape[0] > 10000 and np.isfinite(v).all(), v.shape
     assert on.mean() > 0.95, float(on.mean())
@@ -1376,7 +1414,8 @@ def run_walk(device="cuda", rows=ROWS, cols=COLS, f=FX, warm=W_WARM,
                           timed_events=len(timed_ev), streamed_in=streamed_in,
                           dup=dup, grid_blocks=grid_blocks,
                           peak_gib=peak / 2**30, mesh_s=mesh_s,
-                          on_wall=float(on.mean()))
+                          on_wall=float(on.mean()), vertices=v.shape[0],
+                          faces=n_faces), gw
 
 
 # ---------------------------------------------------------------------------
@@ -1392,8 +1431,8 @@ def res1_blocks(gw):
 def run_slice(depths, rgb, multires=False, mesh=True):
     """Phase 4 (or 7 with multires): N_FRAMES frames of the box-room orbit
     through GeoWrapper.compute, then streamAllOut and, with `mesh`,
-    extractMesh.  Returns (launches of K1's paths and K2 over the frames,
-    numbers)."""
+    extractMesh (the host sweep).  Returns (launches of K1's paths and K2
+    over the frames, numbers, the wrapper)."""
     import numpy as np
     import torch
 
@@ -1450,13 +1489,16 @@ def run_slice(depths, rgb, multires=False, mesh=True):
         log(f"{tag}: streamAllOut {n_grid} blocks in "
             f"{time.perf_counter() - t0:.1f} s (no mesh: phase 9 meshes "
             "this single-res 1 cm path)")
-        return launches, numbers
+        return launches, numbers, gw
+    t1 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         gw.extractMesh(os.path.join(tmp, "mesh.ply"))
+    extract_s = time.perf_counter() - t1
     mesh_s = time.perf_counter() - t0
     v, f = gw.getVertices(), gw.getFaces()
     log(f"{tag} mesh: {v.shape[0]} vertices, {f.shape[0]} faces "
-        f"(streamAllOut + extractMesh {mesh_s:.1f} s)")
+        f"(streamAllOut + extractMesh {mesh_s:.1f} s, extractMesh "
+        f"{extract_s:.1f} s)")
     assert v.shape[0] > 10000, v.shape
     assert np.isfinite(v).all()
     # the reconstruction lies on the box room's walls
@@ -1464,7 +1506,8 @@ def run_slice(depths, rgb, multires=False, mesh=True):
     on_wall = float((wall < 0.03).mean())
     log(f"{tag} mesh: {on_wall:.4f} of vertices within 3 cm of a wall")
     assert on_wall > 0.95, on_wall
-    return launches, dict(numbers, mesh_s=mesh_s)
+    return launches, dict(numbers, mesh_s=mesh_s, extract_s=extract_s,
+                          vertices=v.shape[0], faces=f.shape[0]), gw
 
 
 # ---------------------------------------------------------------------------
@@ -1664,7 +1707,354 @@ def run_gs_path(train, holdout, more, device="cuda", rows=ROWS, cols=COLS,
                           gaussians=gc.model.count, peak_gib=peak / 2**30)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the device mesh sweep
+# ---------------------------------------------------------------------------
+
+MESH_MATCH_S = 60.0     # the 9-D match of non-twins: seconds before it stops
+
+
+@contextlib.contextmanager
+def recording(obj, name):
+    """Record every return value of obj.<name> while the block runs."""
+    calls, orig, own = [], getattr(obj, name), name in vars(obj)
+
+    def rec(*a, **kw):
+        out = orig(*a, **kw)
+        calls.append(out)
+        return out
+
+    setattr(obj, name, rec)
+    try:
+        yield calls
+    finally:
+        if own:
+            setattr(obj, name, orig)
+        else:
+            delattr(obj, name)
+
+
+def cat_tris(parts):
+    """(tri_pos, tri_col) of a list of such pairs, concatenated."""
+    import numpy as np
+    return (np.concatenate([p for p, _ in parts]),
+            np.concatenate([c for _, c in parts]))
+
+
+def match_triangles(got, want, name, budget_s=None, k=8):
+    """The triangles of `got` against those of `want`, each (9 vertex
+    coordinates, 9 colour channels; vertex order within a triangle is the
+    same in both sweeps): counts equal; then the exact twins, bit for bit,
+    paired copy for copy (a sweep may emit one triangle more than once);
+    then each remaining triangle of `got` to its own one of the remaining
+    `want` in 9-D, the nearest of k not yet taken, with positions within
+    1e-3 and colours within 0.5 (tests/test_meshing.py:171-181's bound).
+    With budget_s, the remaining ones are queried in chunks of 200,000 in
+    a seeded order until budget_s has passed.  Where one finds no match,
+    the check fails and names a few.  Returns dict(n, exact, near,
+    checked, max_pos, max_col, s)."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+    t0 = time.perf_counter()
+    rows = [np.concatenate([p.reshape(-1, 9), c.reshape(-1, 9)], axis=1)
+            .astype(np.float32) for p, c in (got, want)]
+    n = rows[0].shape[0]
+    assert rows[1].shape[0] == n and n > 0, (rows[0].shape, rows[1].shape)
+    void = np.dtype((np.void, 18 * 4))
+    both = np.concatenate([np.ascontiguousarray(r).view(void).ravel()
+                           for r in rows])
+    uniq, inv = np.unique(both, return_inverse=True)
+    inv = inv.ravel()
+    cg = np.bincount(inv[:n], minlength=uniq.size)
+    cw = np.bincount(inv[n:], minlength=uniq.size)
+    twins = np.minimum(cg, cw)
+    vals = uniq.view(np.float32).reshape(-1, 18)
+    rest_g = vals[np.repeat(np.arange(uniq.size), cg - twins)]
+    rest_w = vals[np.repeat(np.arange(uniq.size), cw - twins)]
+    out = dict(n=n, exact=int(twins.sum()), near=rest_g.shape[0], checked=n,
+               max_pos=0.0, max_col=0.0)
+    if rest_g.shape[0]:
+        tree = cKDTree(rest_w[:, :9].astype(np.float64))
+        order = np.random.default_rng(0).permutation(rest_g.shape[0])
+        taken = np.zeros(rest_w.shape[0], bool)
+        out["checked"] = out["exact"]
+        for off in range(0, order.size, 200_000):
+            sel = order[off:off + 200_000]
+            kk = min(k, rest_w.shape[0])
+            dist, idx = tree.query(rest_g[sel, :9].astype(np.float64), k=kk)
+            dist, idx = dist.reshape(sel.size, kk), idx.reshape(sel.size, kk)
+            assign = np.full(sel.size, -1)
+            for j in range(kk):
+                r = np.nonzero(assign < 0)[0]
+                cand = idx[r, j]
+                ok = ~taken[cand] & (dist[r, j] < 1e-3)
+                cand, r = cand[ok], r[ok]
+                _, first = np.unique(cand, return_index=True)
+                assign[r[first]] = cand[first]
+                taken[cand[first]] = True
+            if (assign < 0).any():
+                lost = rest_g[sel][assign < 0]
+                raise AssertionError(
+                    f"{name}: {lost.shape[0]} triangles without their own "
+                    f"match within 1e-3 ({rest_g.shape[0]} not exact "
+                    f"twins); the first, pos + col: {lost[:3].tolist()}; "
+                    f"unmatched of the other sweep: "
+                    f"{rest_w[~taken][:3].tolist()}")
+            d = np.abs(rest_g[sel] - rest_w[assign])
+            out["max_pos"] = max(out["max_pos"], float(d[:, :9].max()))
+            out["max_col"] = max(out["max_col"], float(d[:, 9:].max()))
+            out["checked"] += sel.size
+            if budget_s is not None and time.perf_counter() - t0 > budget_s:
+                break
+    assert out["max_col"] < 0.5, out
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def device_sweep(gw, cuda=True):
+    """extractMesh through the device sweep (MRHASH_HOST_MESH=0, the
+    reference's switch): seconds, the sweep's figures (phases, windows,
+    gated cells, batches, dropped blocks), peak device memory and the
+    mesh's counts; and the raw triangles, as the sweep returned them."""
+    import torch
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    os.environ["MRHASH_HOST_MESH"] = "0"
+    try:
+        with recording(gw, "_extract_resident") as parts, \
+                tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            gw.extractMesh(os.path.join(tmp, "mesh.ply"))
+            sweep_s = time.perf_counter() - t0
+    finally:
+        del os.environ["MRHASH_HOST_MESH"]
+    tris = cat_tris(parts)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    return dict(s=sweep_s, peak_gib=peak / 2**30,
+                triangles=tris[0].shape[0],
+                vertices=gw.getVertices().shape[0],
+                faces=gw.getFaces().shape[0], **gw.mesh_stats), tris
+
+
+def compare_small_mesh(devices=("cpu", "cuda")):
+    """Phase 3's small scenes (one resolution and multi-res), built on the
+    CPU and copied to the card, meshed by the device sweep on both: the
+    direct path, then after streamAllOut the chunk-batch path (a device
+    budget of 480 blocks, so several batches); equal vertex and face
+    counts, vertices within 1e-5.  Then the raycast of the multi-res
+    scene from its first pose (96 steps of 2.4 cm) on both: hits equal,
+    depth within 1e-4.  Returns the chunk batches of the multi-res
+    scene."""
+    import numpy as np
+    import torch
+
+    from mrhash_tpu_torch.core.state import MapState, VoxelPool
+    from mrhash_tpu_torch.geowrapper import GeoWrapper
+    from mrhash_tpu_torch.ops import camera as C
+    from mrhash_tpu_torch.ops import hashtable as H
+    from mrhash_tpu_torch.ops import raycast as R
+
+    def to(st, dev):
+        t = st.table
+        table = H.HashTable(**{k: getattr(t, k).to(dev).clone() for k in (
+            "pos", "ptr", "res", "fp", "heap_high", "heap_low")},
+            high_count=t.high_count, low_count=t.low_count,
+            num_buckets=t.num_buckets, num_blocks=t.num_blocks)
+        return MapState(table=table, pool=VoxelPool(**{
+            f: getattr(st.pool, f).to(dev).clone()
+            for f in VoxelPool.FIELDS}), frame=st.frame)
+
+    os.environ["MRHASH_HOST_MESH"] = "0"
+    try:
+        for multires in (False, True):
+            cfg, st, _ = small_scene("cpu", multires)
+            out = {}
+            for dev in devices:
+                gw = GeoWrapper(
+                    sdf_truncation=cfg.sdf_truncation,
+                    sdf_truncation_scale=0.0, integration_weight_sample=1,
+                    virtual_voxel_size=cfg.virtual_voxel_size,
+                    n_frames_invalidate_voxels=0, voxel_extents_scale=1,
+                    gs_optimization_param_path="",
+                    sdf_var_threshold=cfg.sdf_var_threshold,
+                    num_blocks=cfg.num_blocks, max_active_blocks=480,
+                    profiling=False, device=dev)
+                gw.state = to(st, dev)
+                for path in ("direct", "batches"):
+                    if path == "batches":
+                        gw.streamAllOut()
+                    with tempfile.TemporaryDirectory() as tmp:
+                        gw.extractMesh(os.path.join(tmp, "m.ply"))
+                    v = np.asarray(gw.getVertices(), np.float64)
+                    out[dev, path] = (v[np.lexsort(v.T)],
+                                      gw.getFaces().shape[0])
+                batches = gw.mesh_stats
+            err = 0.0
+            for path in ("direct", "batches"):
+                (c, cf), (g, gf) = out[devices[0], path], out[devices[1],
+                                                              path]
+                assert c.shape == g.shape and cf == gf, (path, c.shape,
+                                                         g.shape, cf, gf)
+                err = max(err, float(np.abs(c - g).max()))
+                assert c.shape[0] > 10000 and err <= 1e-5, (path, err)
+            assert batches["batches"] >= 2 and not batches["dropped"]
+            assert not batches["over_budget"], batches
+            log(f"compare device mesh cuda vs cpu (64x256 "
+                f"{'multi-res' if multires else 'single-res'}, "
+                f"{int((st.table.ptr != H.FREE).sum())} blocks): direct "
+                f"{out['cpu', 'direct'][0].shape[0]} vertices, chunk-batch "
+                f"({batches['batches']} batches) "
+                f"{out['cpu', 'batches'][0].shape[0]} vertices, equal counts, "
+                f"max |diff| {err}")
+    finally:
+        del os.environ["MRHASH_HOST_MESH"]
+    depth = {}     # the multi-res scene, the last of the loop
+    for dev in devices:
+        s = to(st, dev)
+        d, hit = R.raycast_depth(cfg, s.table, s.pool,
+                                 C.make_camera(*SMALL_CAM, device=dev),
+                                 step_scale=0.4, max_steps=96)
+        depth[dev] = (d.cpu().numpy(), hit.cpu().numpy())
+    (dc, hc), (dg, hg) = depth[devices[0]], depth[devices[-1]]
+    err = float(np.abs(dc - dg).max())
+    log(f"compare raycast cuda vs cpu (64x256 multi-res): {int(hc.sum())} "
+        f"of {hc.size} rays hit, hits equal {np.array_equal(hc, hg)}, max "
+        f"|depth diff| {err}")
+    assert np.array_equal(hc, hg) and hc.mean() > 0.5, hc.mean()
+    assert err <= 1e-4, err
+    return batches["batches"]
+
+
+def run_viewer(depths, rgb, n=ORBIT, device="cuda"):
+    """Phase 4's wrapper with viewer_active over the first n frames of the
+    orbit: frames/s with the background ticks, then one more frame whose
+    tick must give the mesh of _extract_resident of the map that frame
+    left; and the sweep of that map under torch.profiler: launches and
+    host syncs per cell batch.  Returns the numbers."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mrhash_tpu_torch.core import mesh_post
+
+    cuda = device == "cuda"
+    gw = make_wrapper(device, viewer=True)
+    try:
+        frame_ms = []
+        with recording(gw, "_resident_snapshot") as ticks:
+            for i in range(n):
+                t0 = time.perf_counter()
+                feed(gw, i, depths, rgb)
+                if cuda:
+                    torch.cuda.synchronize()
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+            n_ticks = len(ticks)
+            gw.getViewerMesh()
+            feed(gw, n, depths, rgb)
+            assert len(ticks) == n_ticks + 1
+        t0 = time.perf_counter()
+        want = gw._extract_resident()
+        sweep_s = time.perf_counter() - t0
+        mesh = gw.getViewerMesh()
+        assert gw.viewer_mesh_frame == gw.state.frame
+        ref = mesh_post.MeshAccumulator()
+        ref.add_triangles(*want)
+        assert mesh.vertices.shape[0] > 10000, mesh.vertices.shape
+        assert np.array_equal(mesh.vertices, ref.vertices)
+        assert np.array_equal(mesh.faces, ref.faces)
+        assert np.array_equal(mesh.colors, ref.colors)
+        stats = {}
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
+                                         else [])
+        with profile(activities=acts) as prof:
+            again = gw._extract_resident(stats=stats)
+            if cuda:
+                torch.cuda.synchronize()
+        assert np.array_equal(again[0], want[0])
+        count = {e.key: e.count for e in prof.key_averages()}
+        launches = sum(count.get(k, 0) for k in ("cudaLaunchKernel",
+                                                 "cudaLaunchKernelExC"))
+        syncs = sum(c for k, c in count.items() if "Synchronize" in k)
+        blocks = int((gw.state.table.ptr != -2).sum())
+    finally:
+        gw.close()
+    fps = n / (sum(frame_ms) / 1e3)
+    steady = frame_ms[1:]
+    out = dict(fps=fps, median_ms=statistics.median(steady), ticks=n_ticks,
+               blocks=blocks, vertices=mesh.vertices.shape[0],
+               sweep_s=sweep_s, windows=stats["windows"],
+               cells=stats["cells"], cell_batches=stats["cell_batches"],
+               launches_per_batch=launches / stats["cell_batches"],
+               syncs_per_batch=syncs / stats["cell_batches"])
+    log(f"viewer: {n} frames at {fps:.2f} FPS (median "
+        f"{out['median_ms']:.3f} ms) with {n_ticks} background ticks; "
+        f"frame {gw.state.frame}'s tick: {mesh.vertices.shape[0]} vertices "
+        f"of {blocks} resident blocks, equal to _extract_resident of that "
+        f"map ({sweep_s:.2f} s, {stats['cells']} gated cells in "
+        f"{stats['cell_batches']} batches of {stats['windows']} windows; "
+        f"profiled: {out['launches_per_batch']:.1f} launches and "
+        f"{out['syncs_per_batch']:.1f} host syncs per batch)")
+    return out
+
+
+def run_device_mesh(cases, smi, cuda=True):
+    """Phase 10 on phases 7's and 9's maps, whose host sweeps ran first and
+    which then lay all in their host grids: each grid handed to a fresh
+    wrapper of its phase (`make`, whose device map is empty, as the
+    phase's own after streamAllOut), the device sweep (the chunk-batch
+    path), its triangles against the host sweep's, and on the walk equal
+    vertex, face and triangle counts, no block dropped, no batch over
+    budget, and the on-wall share.  cases: (name, make, grid, the host
+    sweep's recorded (tri_pos, tri_col) calls, the phase's numbers).
+    Returns the figures per map."""
+    import torch
+    out = {}
+    for name, make, grid, host, run in cases:
+        gw = make()
+        gw.streamer.grid = grid
+        rec, tris = device_sweep(gw, cuda)
+        if cuda:
+            torch.cuda.empty_cache()
+        host_tris = cat_tris(host)
+        m = match_triangles(tris, host_tris, name, budget_s=MESH_MATCH_S)
+        assert rec["dropped"] == 0 and rec["over_budget"] == 0, rec
+        rec.update(host_sweep_s=run["extract_s" if name == "multires" else
+                                     "mesh_s"],
+                   host_triangles=host_tris[0].shape[0],
+                   host_vertices=run["vertices"], host_faces=run["faces"],
+                   match=m)
+        if name == "walk":
+            assert (rec["vertices"], rec["faces"]) == (
+                run["vertices"], run["faces"]), rec
+            on = float(on_tube_wall(gw.getVertices()).mean())
+            assert on > 0.95, on
+            rec["on_wall"] = on
+        del gw
+        out[name] = rec
+        phases = " ".join(f"{k} {rec[k]:.2f} s" for k in (
+            "out_s", "insert_s", "extract_s", "clear_s", "host_s"))
+        log(f"device mesh {name}: {rec['s']:.1f} s against the host sweep's "
+            f"{rec['host_sweep_s']:.1f} s; phases {phases}; {rec['batches']} "
+            f"chunk batches, {rec['windows']} windows, {rec['cells']} gated "
+            f"cells in {rec['cell_batches']} cell batches; "
+            f"{rec['triangles']} triangles (host {rec['host_triangles']}), "
+            f"{rec['vertices']} vertices, {rec['faces']} faces (host "
+            f"{rec['host_vertices']}, {rec['host_faces']}); peak "
+            f"{rec['peak_gib']:.3f} GiB [{smi}]")
+        what = ("all" if m["checked"] == m["n"] else
+                f"a seeded sample of the rest: the match stops after "
+                f"{MESH_MATCH_S:.0f} s")
+        log(f"device mesh {name}: {m['checked']} of {m['n']} triangles "
+            f"matched to the host sweep's one to one ({m['exact']} exact "
+            f"twins, bit for bit; {m['near']} others in 9-D, {what}; "
+            f"{m['s']:.1f} s), max |pos| {m['max_pos']:.3g}, max |col| "
+            f"{m['max_col']:.3g}")
+    return out
+
+
 def main():
+    t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1748,7 +2138,7 @@ def main():
 
     # 4. the RGB-D path (its mesh is left to phase 9, which meshes the
     # same single-res 1 cm path over the host grid and the device)
-    launches, run = run_slice(depths, rgb, mesh=False)
+    launches, run = run_slice(depths, rgb, mesh=False)[:2]
     log(f"run: {run['fps']:.2f} FPS, median {run['median_ms']:.3f} ms/frame, "
         f"peak {run['peak_gib']:.3f} GiB [{smi}]")
     torch.cuda.empty_cache()
@@ -1771,8 +2161,13 @@ def main():
         f"[{smi}]")
     torch.cuda.empty_cache()
 
-    # 7. the multi-res RGB-D path
-    mr_launches, mrun = run_slice(depths, rgb, multires=True)
+    # 7. the multi-res RGB-D path (its host sweep's triangles kept for
+    # phase 10)
+    from mrhash_tpu_torch import native
+    with recording(native, "extract_mesh_host") as host7:
+        mr_launches, mrun, gw7 = run_slice(depths, rgb, multires=True)
+    grid7 = gw7.streamer.grid      # the map, all of it after streamAllOut
+    del gw7
     log(f"multires: {mrun['fps']:.2f} FPS, median {mrun['median_ms']:.3f} "
         f"ms/frame, {mrun['res1_blocks']} res-1 blocks, res-0 window "
         f"{mrun['res0_window']}, peak {mrun['peak_gib']:.3f} GiB, K1 "
@@ -1787,14 +2182,32 @@ def main():
         f"{ml_launches} [{smi}]")
     torch.cuda.empty_cache()
 
-    # 9. the streaming walk
-    w_launches, wrun = run_walk()
+    # 9. the streaming walk (its host sweep's triangles kept for phase 10)
+    with recording(native, "extract_mesh_host") as host9:
+        w_launches, wrun, gw9 = run_walk()
+    grid9 = gw9.streamer.grid
+    del gw9
     log(f"walk: {wrun['fps']:.2f} FPS with {wrun['timed_events']} stream "
         f"events in the timed window ({wrun['events']} in all), "
         f"{wrun['streamed_in']} blocks streamed in on the walk back, "
         f"duplicate ratio {wrun['dup']:.4f}, peak {wrun['peak_gib']:.3f} GiB, "
         f"mesh {wrun['on_wall']:.4f} on the walls, K1/K2 launches "
         f"{w_launches} [{smi}]")
+
+    # 10. the device mesh sweep: card against CPU on phase 3's scenes, the
+    # viewer, then phases 7's and 9's maps against their host sweeps
+    small_batches = compare_small_mesh()
+    vrun = run_viewer(depths, rgb)
+    log(f"viewer: {vrun['fps']:.2f} FPS with the viewer on, phase 4 "
+        f"{run['fps']:.2f} FPS without [{smi}]")
+    torch.cuda.empty_cache()
+    meshes = run_device_mesh(
+        [("multires", lambda: make_wrapper("cuda", multires=True), grid7,
+          host7, mrun),
+         ("walk", lambda: make_walk_wrapper("cuda"), grid9, host9, wrun)],
+        smi)
+    del grid7, grid9, host7, host9
+    torch.cuda.empty_cache()
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "mrhash_tpu"))
@@ -1855,6 +2268,12 @@ def main():
             entry.update({"k128_" + k: k5f[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
         kernels.append(entry)
+    log(f"smoke: {time.perf_counter() - t_main:.1f} s in all")
+    from mrhash_tpu_torch import geowrapper
+    print(json.dumps({"mesh": dict(
+        card=smi, max_cells=geowrapper.MESH_MAX_CELLS,
+        chunk=geowrapper.MESH_CHUNK, small_chunk_batches=small_batches,
+        viewer=vrun, rgbd_fps=run["fps"], **meshes)}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

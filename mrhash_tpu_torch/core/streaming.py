@@ -22,8 +22,8 @@ The reference's transfer pack (an i32 buffer with weight in rgb's spare
 byte), its fetch slicing and power-of-two fetch tiers were workarounds for
 a slow remote link: here the four voxel fields go to pinned host buffers on
 a side CUDA stream (PORT_NOTES.md P34-P36).  Its `collect_evicted` has no
-caller and is not ported; `insert_readonly` waits for the device mesh
-sweep (ROADMAP A7).
+caller and is not ported.  `insert_readonly` stages host blocks into the
+device map for the device mesh sweep without taking them from the grid.
 """
 from __future__ import annotations
 
@@ -435,6 +435,47 @@ class Streamer:
                 print(f"Streamer | stream_in: {idx.size} blocks did not fit "
                       "the device hash; kept in RAM")
         return state
+
+    def insert_readonly(self, state: MapState, blocks, owned):
+        """Insert host blocks into the device map in staging-sized batches
+        WITHOUT taking them from the chunk grid, which keeps the payloads:
+        the caller must not stream these device copies back
+        (mrhash_tpu's insert_readonly).  `blocks` holds the grid's arrays
+        (pos, res and the host-layout fields), `owned` a bool mask aligned
+        with its rows.  Returns (state, owned_slot_mask bool[capacity] on
+        the device, n_dropped): the mask marks the table slots that hold
+        owned blocks, so a mesh sweep over several batches extracts each
+        block exactly once; n_dropped counts the blocks that found no slot
+        or no heap block.  Unlike the reference, each batch first splits
+        as many high blocks as its res-1 blocks need (`insert_blocks`
+        alone splits at most cfg.low_split_chunk), and the blocks that
+        lost a slot to another key of the batch try again until a round
+        places none (PORT_NOTES.md P54)."""
+        table = state.table
+        dev = table.pos.device
+        owned_mask = torch.zeros(table.capacity, dtype=torch.bool,
+                                 device=dev)
+        total = blocks["pos"].shape[0]
+        dropped = 0
+        for off in range(0, total, self.staging):
+            rows = np.arange(off, min(off + self.staging, total))
+            short = int((blocks["res"][rows] == 1).sum()) - table.low_count
+            if short > 0:
+                H.split_high_blocks(
+                    table, -(-short // P.OCTREE_BRANCHING_FACTOR))
+            while rows.size:
+                present, slot, _ = insert_blocks(
+                    self.cfg, table, state.pool,
+                    *(torch.from_numpy(blocks[k][rows]).to(dev)
+                      for k in ("pos", "res", *HOST_FIELDS)))
+                own = torch.from_numpy(owned[rows]).to(dev)
+                owned_mask[slot[present & own]] = True
+                failed = rows[~present.cpu().numpy()]
+                if failed.size == rows.size:
+                    dropped += int(failed.size)
+                    break
+                rows = failed
+        return state, owned_mask, dropped
 
     def stream(self, state: MapState, cam_pos, radius, budget=0,
                asynchronous=False) -> MapState:

@@ -8,19 +8,25 @@ the voxel spacing): setCamera / setCurrPose / setDepthImage + setRGBImage
 or setPointCloud / compute, then streamAllOut / extractMesh /
 serializeData / serializeGrid / deserializeGrid / clearBuffers; with a
 gs_optimization_param_path, online 3D Gaussian Splatting after each RGB-D
-frame, then GSFinalOpt / GSSavePointCloud.  Every frame runs eagerly on
-`device` ("cuda" by default).  When the free high heap falls to the
-stream watermark, compute() first streams the farthest blocks to the host
-chunk grid and reloads the host chunks near the camera (core/streaming.py),
-so a scene larger than the device pool keeps integrating.  Out of these
-slices, and raising instead of skipping: the non-projective LiDAR update
-(projective_sdf=False), starvation under the spherical model
-(n_frames_invalidate_voxels > 0 with a spherical camera) and the viewer
-thread.
+frame, then GSFinalOpt / GSSavePointCloud; with viewer_active, a mesh of
+the device-resident map refreshed in the background after each frame
+(getViewerMesh).  Every frame runs eagerly on `device` ("cuda" by
+default).  When the free high heap falls to the stream watermark,
+compute() first streams the farthest blocks to the host chunk grid and
+reloads the host chunks near the camera (core/streaming.py), so a scene
+larger than the device pool keeps integrating.  extractMesh runs the host
+sweep (native/), or with MRHASH_HOST_MESH=0 the device sweep
+(ops/meshing.py), as the reference selects them.  Out of these slices,
+and raising instead of skipping: the non-projective LiDAR update
+(projective_sdf=False) and starvation under the spherical model
+(n_frames_invalidate_voxels > 0 with a spherical camera).
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import os
+import time
 
 import numpy as np
 import torch
@@ -28,12 +34,21 @@ import torch
 from mrhash_tpu_torch import native
 from mrhash_tpu_torch import params as P
 from mrhash_tpu_torch.core import mesh_post, pipeline
-from mrhash_tpu_torch.core.state import MapConfig, make_state
-from mrhash_tpu_torch.core.streaming import ChunkGrid, Streamer
+from mrhash_tpu_torch.core.state import (MapConfig, MapState, VoxelPool,
+                                         make_state)
+from mrhash_tpu_torch.core.streaming import (ChunkGrid, Streamer,
+                                             gather_blocks)
 from mrhash_tpu_torch.gs.container import GaussianContainer
 from mrhash_tpu_torch.ops import camera as C
+from mrhash_tpu_torch.ops import hashtable as H
+from mrhash_tpu_torch.ops import meshing as M
 from mrhash_tpu_torch.utils import plyio
 from mrhash_tpu_torch.utils.profiler import Profiler
+
+# the device mesh sweep's sizes: blocks gated per window and cells per
+# phase-B batch (results do not depend on them; PORT_NOTES.md P51)
+MESH_CHUNK = 1 << 13
+MESH_MAX_CELLS = 1 << 20
 
 
 def _quat_to_rot(qx, qy, qz, qw):
@@ -94,8 +109,12 @@ class GeoWrapper:
             raise RuntimeError("GeoWrapper(device='cuda'): CUDA is not "
                                "available (pass device='cpu' for the plain "
                                "PyTorch path)")
-        if viewer_active:
-            raise NotImplementedError("viewer_active: not ported yet")
+        self.viewer_active = bool(viewer_active)
+        self.viewer_mesh = mesh_post.MeshAccumulator()
+        self.viewer_mesh_frame = None
+        self._viewer_future = None
+        self._viewer_pool = (concurrent.futures.ThreadPoolExecutor(1)
+                             if self.viewer_active else None)
         # projective_sdf only steers the LiDAR update; RGB-D ignores it, as
         # in the reference
         self._projective_sdf = bool(projective_sdf)
@@ -150,6 +169,7 @@ class GeoWrapper:
         self._weights = None
         self._high_free = self.cfg.num_blocks
         self.last_stats = None
+        self.mesh_stats = {}     # the last extractMesh's figures
         self.integration_profiler = Profiler("integration_profiler",
                                              profiling)
         self.streaming_profiler = Profiler("streamer_profiler", profiling)
@@ -252,6 +272,8 @@ class GeoWrapper:
         if self.gs_container is not None and not lidar:
             # the GS step consumes the device copies of this frame
             self.gs_container.run_gs(self.cfg, cam, self.state, rgb, depth)
+        if self.viewer_active:
+            self._viewer_mesh_tick()
 
     def _stream(self):
         """The stream trigger (geowrapper.cpp:137-138): a budgeted eviction
@@ -280,16 +302,212 @@ class GeoWrapper:
         self._high_free = self.state.table.high_count
 
     # ------------------------------------------------------------------ meshing
-    def extractMesh(self, filename: str):
-        """Host-native extractMesh (native/mrhash_mesh.cpp through the
-        port's `native` loader, the reference's read-only path): snapshot
-        the device blocks over a copy of the host chunk grid, run the
-        Transvoxel sweep on the host, write an ASCII PLY.  The device map
-        stays live."""
-        snap = ChunkGrid(np.asarray(self.cfg.voxel_extents, np.float32))
-        # the blocks of an asynchronous stream-out still in flight land in
-        # the grid before it is copied
+    def _extract_resident(self, state=None, owned=None, stats=None):
+        """MeshExtractor::extractMesh on the device-resident blocks of
+        `state` (the live map by default): every occupied slot, or with
+        `owned` (bool[capacity]) only the owned ones, in slot order, swept
+        in windows of MESH_CHUNK blocks (each gated once, with its 27-ring)
+        and batches of MESH_MAX_CELLS gated cells.  Blocks outside the
+        window still serve its cells' corner reads.  Returns host numpy
+        (tri_pos f32[T,3,3], tri_col f32[T,3,3]); `stats`, a dict, gains
+        the windows, gated cells and cell batches."""
+        state = self.state if state is None else state
+        table = state.table
+        slots = H.compact(table, owned, table.capacity)
+        bpos, bptr, bres = table.pos[slots], table.ptr[slots], table.res[slots]
+        pos, col = [], []
+        stats = {} if stats is None else stats
+        for off in range(0, slots.shape[0], MESH_CHUNK):
+            sl = slice(off, off + MESH_CHUNK)
+            p, c = M.extract_iso_surface(self.cfg, table, state.pool,
+                                         bpos[sl], bptr[sl], bres[sl],
+                                         MESH_MAX_CELLS, stats)
+            pos.append(p.cpu().numpy())
+            col.append(c.cpu().numpy())
+        if not pos:
+            empty = np.zeros((0, 3, 3), np.float32)
+            return empty, empty
+        return np.concatenate(pos), np.concatenate(col)
+
+    # ---- viewer mesh thread (mesh_extractor.cpp:78-92) --------------------
+    def _resident_snapshot(self):
+        """A private copy of the device-resident map, for the viewer's
+        worker: the table's keys as they are, each occupied block's voxels
+        (sdf, weight, rgb) in a compact pool of its own rows, a res-1
+        block's at lanes [0, 64) of its row.  Later frames update the live
+        map in place and leave the copy as it was; the sweep of the copy
+        gives the live map's triangles, in the same order."""
+        t = self.state.table
+        occ = t.ptr != H.FREE
+        slots = torch.nonzero(occ).flatten()
+        rank = (torch.cumsum(occ.to(torch.int32), 0) - 1).to(torch.int32)
+        sdf, _, w, rgb = gather_blocks(self.state.pool, t.ptr[slots],
+                                       t.res[slots], with_ssq=False)
+        empty = torch.empty(0, dtype=torch.int32, device=t.ptr.device)
+        table = H.HashTable(
+            pos=t.pos.clone(), res=t.res.clone(), fp=t.fp.clone(),
+            ptr=torch.where(occ, rank * P.TOTAL_SDF_BLOCK_SIZE, H.FREE),
+            heap_high=empty, heap_low=empty, high_count=0, low_count=0,
+            num_buckets=t.num_buckets, num_blocks=int(slots.shape[0]))
+        return MapState(table=table, pool=VoxelPool(
+            sdf=sdf, sumsq=torch.zeros_like(sdf), weight=w, rgbp=rgb),
+            frame=self.state.frame)
+
+    def _viewer_mesh_tick(self):
+        """With viewer_active, refresh the renderable mesh in the
+        background after a frame (the reference's viewer thread
+        re-extracts on demand).  The map is updated in place, so the worker
+        sweeps a snapshot taken here, on the calling thread; a tick is
+        skipped while the previous one runs."""
+        if self._viewer_future is not None and not self._viewer_future.done():
+            return
+        snap = self._resident_snapshot()
+
+        def work():
+            tri_pos, tri_col = self._extract_resident(state=snap)
+            m = mesh_post.MeshAccumulator()
+            if tri_pos.shape[0]:
+                m.add_triangles(tri_pos, tri_col)
+            self.viewer_mesh, self.viewer_mesh_frame = m, snap.frame
+
+        self._viewer_future = self._viewer_pool.submit(work)
+
+    def getViewerMesh(self):
+        """The latest background-extracted mesh (waits for a tick in
+        flight; empty before the first)."""
+        if self._viewer_future is not None:
+            self._viewer_future.result()
+        return self.viewer_mesh
+
+    def close(self):
+        """Wait for the viewer's tick in flight and stop its worker, and
+        wait for an asynchronous stream-out (re-raising their errors)."""
+        if self._viewer_pool is not None:
+            try:
+                self.getViewerMesh()
+            finally:
+                self._viewer_pool.shutdown(wait=True)
+                self._viewer_pool = None
         self.streamer.join()
+
+    def extractMesh(self, filename: str):
+        """extractMesh + ASCII PLY.  By default the host-native sweep
+        (native/mrhash_mesh.cpp through the port's `native` loader, the
+        reference's read-only path): snapshot the device blocks over a copy
+        of the host chunk grid, run the Transvoxel sweep on the host; the
+        device map stays live.  With MRHASH_HOST_MESH=0, the reference's
+        switch, the device sweep (ops/meshing.py): directly over the map
+        when the host grid is empty, else the chunk-batch sweep."""
+        t_start = time.perf_counter()
+        # the blocks of an asynchronous stream-out still in flight land in
+        # the grid before either sweep reads it
+        self.streamer.join()
+        self.mesh_stats = dict(windows=0, cells=0, cell_batches=0)
+        if os.environ.get("MRHASH_HOST_MESH", "1") != "0":
+            self._extract_mesh_host()
+        elif not self.streamer.grid.chunks:
+            # the whole map is device-resident: the stream-out and
+            # read-only re-insert exist for maps the host grid holds
+            self.mesh.reset()
+            tri_pos, tri_col = self._extract_resident(stats=self.mesh_stats)
+            if tri_pos.shape[0] > 0:
+                self.mesh.add_triangles(tri_pos, tri_col)
+            print("GeoWrapper::extractMesh | direct (device-resident map) "
+                  f"{time.perf_counter() - t_start:.1f}s")
+        else:
+            self._extract_mesh_batches(t_start)
+        plyio.write_mesh_ply(filename, self.mesh.vertices, self.mesh.faces,
+                             self.mesh.colors)
+        print(f"GeoWrapper::extractMesh | written "
+              f"{self.mesh.vertices.shape[0]} vertices and "
+              f"{self.mesh.faces.shape[0]} faces to {filename}")
+
+    def _extract_mesh_batches(self, t_start):
+        """The chunk-batch device sweep (the reference's protocol,
+        geowrapper.cpp:150-230, read-only as mrhash_tpu's): stream the
+        whole map out, then for each batch of host chunks whose 1-ring
+        fits the device budget, insert the batch and its ring read-only
+        (the grid keeps ownership), extract the batch's own blocks (the
+        ring's serve only the corner reads, so each block meshes once) and
+        clear the device map.  The map is left empty, every block in the
+        grid.  `mesh_stats` gains the phases' seconds, the batches, the
+        blocks the device hash dropped and the batches over budget (each
+        of the last two also printed as a warning)."""
+        self.state = self.streamer.stream_all_out(self.state)
+        self.mesh.reset()
+        ph = self.mesh_stats
+        ph.update(out_s=time.perf_counter() - t_start, insert_s=0.0,
+                  extract_s=0.0, clear_s=0.0, host_s=0.0, batches=0,
+                  dropped=0, over_budget=0)
+        grid = self.streamer.grid
+        sizes = {k: g["pos"].shape[0] for k, g in grid.chunks.items()}
+        budget = min(self.cfg.max_active_blocks,
+                     int(self.cfg.num_blocks * 0.9))
+        order = sorted(sizes)
+        tris, i = [], 0
+        while i < len(order):
+            batch, loaded, total = set(), set(), 0
+            while i < len(order):
+                key = order[i]
+                need = {(key[0] + dx, key[1] + dy, key[2] + dz)
+                        for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+                        for dz in (-1, 0, 1)}
+                need = {c for c in need if c in sizes} - loaded
+                nb = sum(sizes[c] for c in need)
+                if batch and total + nb > budget:
+                    break
+                batch.add(key)
+                loaded |= need
+                total += nb
+                i += 1
+            if total > budget:
+                # only a singleton batch: its own 27-neighbourhood exceeds
+                # the device budget, and its blocks may not all fit
+                ph["over_budget"] += 1
+                print(f"GeoWrapper::extractMesh | chunk batch needs "
+                      f"{total} blocks > device budget {budget}; raise "
+                      "max_active_blocks / num_blocks")
+            groups = [grid.chunks[c] for c in sorted(loaded)]
+            blocks = {k: np.concatenate([g[k] for g in groups])
+                      for k in groups[0]}
+            owned = np.concatenate([np.full(g["pos"].shape[0], c in batch)
+                                    for c, g in zip(sorted(loaded), groups)])
+            t0 = time.perf_counter()
+            _, owned_mask, dropped = self.streamer.insert_readonly(
+                self.state, blocks, owned)
+            ph["insert_s"] += time.perf_counter() - t0
+            ph["batches"] += 1
+            if dropped:
+                ph["dropped"] += dropped
+                print(f"GeoWrapper::extractMesh | {dropped} blocks did not "
+                      "fit the device hash this batch; their cells are "
+                      "missing from the mesh (raise num_blocks)")
+            t0 = time.perf_counter()
+            tris.append(self._extract_resident(owned=owned_mask, stats=ph))
+            ph["extract_s"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            t = self.state.table
+            self.state.table = H.make_table(t.num_blocks, t.num_buckets,
+                                            t.pos.device)
+            for f in VoxelPool.FIELDS:
+                getattr(self.state.pool, f).zero_()
+            ph["clear_s"] += time.perf_counter() - t0
+        self._high_free = self.cfg.num_blocks
+        t0 = time.perf_counter()
+        if tris:
+            tri_pos = np.concatenate([p for p, _ in tris])
+            if tri_pos.shape[0] > 0:
+                self.mesh.add_triangles(
+                    tri_pos, np.concatenate([c for _, c in tris]))
+        ph["host_s"] = time.perf_counter() - t0
+        print("GeoWrapper::extractMesh | phases " + " ".join(
+            f"{k}={v:.1f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in ph.items()))
+
+    def _extract_mesh_host(self):
+        """The host-native sweep over a read-only snapshot of the device
+        blocks merged over a copy of the host chunk grid."""
+        snap = ChunkGrid(np.asarray(self.cfg.voxel_extents, np.float32))
         snap.chunks = dict(self.streamer.grid.chunks)
         self.streamer.snapshot_into(self.state, snap, mesh_only=True)
         self.mesh.reset()
@@ -304,11 +522,6 @@ class GeoWrapper:
                 self.cfg.min_weight_threshold)
             if tri_pos.shape[0] > 0:
                 self.mesh.add_triangles(tri_pos, tri_col)
-        plyio.write_mesh_ply(filename, self.mesh.vertices, self.mesh.faces,
-                             self.mesh.colors)
-        print(f"GeoWrapper::extractMesh | written "
-              f"{self.mesh.vertices.shape[0]} vertices and "
-              f"{self.mesh.faces.shape[0]} faces to {filename}")
 
     # ------------------------------------------------------------------ GS
     def GSSavePointCloud(self, folder: str):

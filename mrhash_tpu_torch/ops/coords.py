@@ -66,8 +66,13 @@ def sdf_block_to_virtual_voxel_pos(sdf_block):
 
 def world_point_to_virtual_voxel_pos(virtual_voxel_size, point):
     """voxel_hash_utils.cuh:143-151 — nearest virtual voxel (round half
-    away from zero)."""
-    p = point.to(torch.float32) / float(virtual_voxel_size)
+    away from zero).  virtual_voxel_size: a number, or an f32 tensor on
+    the point's device; on a card only the tensor gives the correctly
+    rounded quotient (CUDA divides by a Python number as a product with
+    its reciprocal, which can be an ulp off)."""
+    if not torch.is_tensor(virtual_voxel_size):
+        virtual_voxel_size = float(virtual_voxel_size)
+    p = point.to(torch.float32) / virtual_voxel_size
     approx = p + torch.sign(p) * 0.5
     return _sign_aware_floor(approx).to(torch.int32)
 

@@ -2,8 +2,9 @@
 builds without writing into the repo's `native/` directory.
 
 - In a fresh interpreter, importing mrhash_tpu_torch, its GeoWrapper, its
-  native loader and all three runners leaves no `jax` and no `mrhash_tpu`
-  module in sys.modules; so does importing every module of its Gaussian
+  native loader, all three runners and the mesh sweep's modules (meshing,
+  transvoxel, raycast) leaves no `jax` and no `mrhash_tpu` module in
+  sys.modules; so does importing every module of its Gaussian
   Splatting package and the GS runner.
 - With tqdm missing (the card's machine has none), all five runners
   import and rgbd_runner's frame loop runs: two in-memory frames through a
@@ -26,6 +27,9 @@ import mrhash_tpu_torch.native
 import mrhash_tpu_torch.apps.rgbd_runner
 import mrhash_tpu_torch.apps.ply_runner
 import mrhash_tpu_torch.apps.kitti_runner
+import mrhash_tpu_torch.ops.meshing
+import mrhash_tpu_torch.ops.raycast
+import mrhash_tpu_torch.ops.transvoxel
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mrhash_tpu"))
 print(repr(bad))
