@@ -4,6 +4,7 @@ frames and the streaming walk's frames goes, on one NVIDIA card; and an A/B
 of the RGB-D frame time against another checkout of the port.
 
     python3 chip_profile.py
+    python3 chip_profile.py --points
     python3 chip_profile.py --gs
     python3 chip_profile.py --multires
     python3 chip_profile.py --walk
@@ -25,6 +26,12 @@ reports:
      ranges of the frame step itself (core/pipeline.py::integrate_points);
   3. K3's host cost per launch (the wrapper's launcher, no sync) against its
      device time.
+The --points form does 1 and 2 for chip_smoke.py's phase 11, both
+passes: the same scans starving every 10 scans (so the profiled scans
+10-19 hold one starve scan) with GC on every scan, (a) through the
+point-centric update (projective_sdf=False, MADtree normals from
+setPointCloud(points, True)), (b) through the projective one (K3); the
+stage ranges add points.walk (integrate_points_sdf) and points.starve.
 The --gs form drives chip_smoke.py's phase-6 scene (tools/bench_gs.py's
 textured box room at 1200x680, configurations/params.json) through
 GeoWrapper(device="cuda"): the two training frames, then frames 2-6 of the
@@ -803,18 +810,94 @@ def mesh_profile(smi):
     assert len(counts) == 1, counts
 
 
+def scan_profile(smi, label, make, feed, stage_cost=False):
+    """Steps 1 and 2 of the LiDAR forms for one wrapper: `make()` builds
+    it, `feed(gw, i)` runs scan i.  Returns the profiled wrapper and the
+    profiled scan count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mrhash_tpu_torch.utils.profiler import stage
+
+    # 1. unprofiled scan time, as chip_smoke.py's phases take it
+    gw = make()
+    scan_ms = []
+    for i in range(S.L_FRAMES):
+        t0 = time.perf_counter()
+        feed(gw, i)
+        torch.cuda.synchronize()
+        scan_ms.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(scan_ms[S.L_STEADY:])
+    print(f"{label}: scan, median over scans {S.L_STEADY}-"
+          f"{S.L_FRAMES - 1}: {wall:.3f} ms [{smi}]")
+
+    if stage_cost:
+        # host cost of a stage range while no profiler runs, and of an
+        # idle record_function, which stage() skips
+        for name, fn in (("stage()", stage),
+                         ("record_function", record_function)):
+            reps = 10000
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                with fn("points.idle"):
+                    pass
+            print(f"{name}, no profiler: "
+                  f"{(time.perf_counter() - t0) / reps * 1e6:.2f} us per "
+                  "range")
+
+    # 2. profiler over 10 steady scans through GeoWrapper.compute
+    gw = make()
+    for i in range(S.L_STEADY):
+        feed(gw, i)
+    torch.cuda.synchronize()
+    n = 10
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(S.L_STEADY, S.L_STEADY + n):
+            feed(gw, i)
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+
+    def dev_us(e):
+        return _dev_us(e, "self_device_time_total")
+
+    # device-side events only: kernels, copies and sets, not the ranges'
+    # device spans (a host op's own device time repeats its kernels')
+    on_device = [e for e in ka if e.device_type != DeviceType.CPU
+                 and not e.key.startswith("points.")]
+    device_ms = sum(dev_us(e) for e in on_device) / 1e3 / n
+    count = {e.key: e.count for e in ka}
+    launches = sum(count.get(k, 0) for k in ("cudaLaunchKernel",
+                                             "cuLaunchKernel",
+                                             "cudaLaunchKernelExC"))
+    syncs = sum(c for k, c in count.items() if "Synchronize" in k)
+    k3 = [e for e in ka if "fused_integrate_points_kernel" in e.key]
+    k3_us = (dev_us(k3[0]) / k3[0].count) if k3 else float("nan")
+    print(f"{label}: profiler, {n} scans [{smi}]: device {device_ms:.3f} "
+          f"ms/scan, busy {device_ms / wall:.4f} of the unprofiled scan, "
+          f"{launches / n:.1f} kernel launches and {syncs / n:.1f} host "
+          f"syncs per scan, K3 {k3_us:.2f} us device per launch")
+    print(f"{label}: stages (torch.profiler ranges; host ms/scan under the "
+          "profiler, device ms/scan):")
+    for name, (host, dev) in stage_times(prof, n).items():
+        print(f"  {name}: host {host:.3f}, device {dev:.3f}")
+    top = sorted(on_device, key=dev_us, reverse=True)[:8]
+    for e in top:
+        print(f"  {dev_us(e) / n / 1e3:.4f} ms/scan  x{e.count // n:<4d} "
+              f"{e.key[:90]}")
+    return gw, n
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: torch.cuda.is_available() is False")
     import numpy as np
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
 
     from mrhash_tpu_torch.ops import camera as C
     from mrhash_tpu_torch.ops import fused_integrate_points as FIP
     from mrhash_tpu_torch.ops import integrate as I
-    from mrhash_tpu_torch.utils.profiler import stage
 
     if len(sys.argv) == 3 and sys.argv[1] == "--rgbd-ab":
         return rgbd_ab(sys.argv[2])
@@ -834,70 +917,18 @@ def main():
         return mesh_profile(smi)
     rng = np.random.default_rng(0)
     clouds = [S.lidar_cloud(S.lidar_pose(i), rng) for i in range(S.L_FRAMES)]
-
-    # 1. unprofiled scan time, as chip_smoke.py's phase 5 takes it
-    gw = S.make_lidar_wrapper("cuda", clouds[0])
-    scan_ms = []
-    for i in range(S.L_FRAMES):
-        t0 = time.perf_counter()
-        S.feed_lidar(gw, i, clouds)
-        torch.cuda.synchronize()
-        scan_ms.append((time.perf_counter() - t0) * 1e3)
-    wall = statistics.median(scan_ms[S.L_STEADY:])
-    print(f"scan, median over scans {S.L_STEADY}-{S.L_FRAMES - 1}: "
-          f"{wall:.3f} ms [{smi}]")
-
-    # host cost of a stage range while no profiler runs, and of an idle
-    # record_function, which stage() skips
-    for name, fn in (("stage()", stage), ("record_function", record_function)):
-        reps = 10000
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            with fn("points.idle"):
-                pass
-        print(f"{name}, no profiler: "
-              f"{(time.perf_counter() - t0) / reps * 1e6:.2f} us per range")
-
-    # 2. profiler over 10 steady scans through GeoWrapper.compute
-    gw = S.make_lidar_wrapper("cuda", clouds[0])
-    for i in range(S.L_STEADY):
-        S.feed_lidar(gw, i, clouds)
-    torch.cuda.synchronize()
-    n = 10
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(S.L_STEADY, S.L_STEADY + n):
-            S.feed_lidar(gw, i, clouds)
-        torch.cuda.synchronize()
-    ka = prof.key_averages()
-
-    def dev_us(e):
-        return _dev_us(e, "self_device_time_total")
-
-    # device-side events only: kernels, copies and sets, not the ranges'
-    # device spans (a host op's own device time repeats its kernels')
-    on_device = [e for e in ka if e.device_type != DeviceType.CPU
-                 and not e.key.startswith("points.")]
-    device_ms = sum(dev_us(e) for e in on_device) / 1e3 / n
-    count = {e.key: e.count for e in ka}
-    launches = sum(count.get(k, 0) for k in ("cudaLaunchKernel",
-                                             "cuLaunchKernel",
-                                             "cudaLaunchKernelExC"))
-    syncs = sum(c for k, c in count.items() if "Synchronize" in k)
-    k3 = [e for e in ka if "fused_integrate_points_kernel" in e.key]
-    k3_us = (dev_us(k3[0]) / k3[0].count) if k3 else float("nan")
-    print(f"profiler, {n} scans [{smi}]: device {device_ms:.3f} ms/scan, "
-          f"busy {device_ms / wall:.4f} of the unprofiled scan, "
-          f"{launches / n:.1f} kernel launches and {syncs / n:.1f} host "
-          f"syncs per scan, K3 {k3_us:.2f} us device per launch")
-    print("stages (torch.profiler ranges; host ms/scan under the profiler, "
-          "device ms/scan):")
-    for name, (host, dev) in stage_times(prof, n).items():
-        print(f"  {name}: host {host:.3f}, device {dev:.3f}")
-    top = sorted(on_device, key=dev_us, reverse=True)[:8]
-    for e in top:
-        print(f"  {dev_us(e) / n / 1e3:.4f} ms/scan  x{e.count // n:<4d} "
-              f"{e.key[:90]}")
+    if sys.argv[1:] == ["--points"]:     # phase 11's passes (a) and (b)
+        for label, projective in (("(a) point-centric", False),
+                                  ("(b) projective", True)):
+            scan_profile(smi, f"phase 11 {label}", lambda p=projective: (
+                S.make_lidar_wrapper("cuda", clouds[0], n_starve=S.L_STARVE,
+                                     projective=p)),
+                lambda gw, i, p=projective: S.feed_lidar(gw, i, clouds,
+                                                         not p))
+        return
+    gw, n = scan_profile(
+        smi, "phase 5", lambda: S.make_lidar_wrapper("cuda", clouds[0]),
+        lambda gw, i: S.feed_lidar(gw, i, clouds), stage_cost=True)
 
     # 3. K3's host cost per launch, no sync in between
     cfg, st = gw.cfg, gw.state

@@ -20,10 +20,17 @@ Phases (any failure raises: non-zero exit, no result line):
                6's scene, 1200x680, K = 64, and K5 again at GSFinalOpt's
                cap, K = 128), then timed in turns (twin,
                kernel, library, library, kernel, twin) by CUDA-graph replay
-               and CUDA events; and each whole slice (RGB-D at one
-               resolution and multi-res, LiDAR, GS, streaming) on the card
-               against the same slice on the CPU on a small scene, and the
-               full-size quad tree of phase 6's frame 0;
+               and CUDA events; K2 also on phase 11's spherical z-buffer
+               (64x1024, after 10 point-centric scans); each whole slice
+               (RGB-D at one resolution and multi-res, LiDAR projective and
+               point-centric, GS, streaming) on the card against the same
+               slice on the CPU on a small scene (the point-centric one
+               with starvation and GC: the same blocks freed), and the
+               full-size quad tree of phase 6's frame 0; and the
+               allocation candidates on the card equal to the CPU's as sets
+               at full width (ROADMAP C14): phase 4's tile DDA on frames 0,
+               1 and 100 and the point-centric voxel walk of one 64x1024
+               scan, 0 keys apart;
   4. RGB-D   — GeoWrapper(device="cuda") at replica.cfg's settings, 120
                frames of bench.py's box-room orbit (starvation fires on
                frame 100), with the kernels' launch counts taken over that
@@ -76,14 +83,25 @@ Phases (any failure raises: non-zero exit, no result line):
                on the walk as many as a minute allows, in a seeded order),
                and on the walk equal vertex, face and triangle counts and
                the vertices on the tube's walls; the figures on one
-               {"mesh": ...} line.
+               {"mesh": ...} line;
+ 11. LiDAR, point-centric and starved — phase 5's 40 scans with
+               starvation every 10 scans (newer_college.cfg has 0: none of
+               the LiDAR configs starves) and GC on every scan: pass (a)
+               the point-centric update (projective_sdf=False, MADtree
+               normals from setPointCloud(points, True)), pass (b) the
+               projective update (K3); scans/s over the last 30 scans
+               (setPointCloud's share apart), visited voxels and distinct
+               blocks per scan, K2's launches (exactly 3: scans 10, 20, 30)
+               and K3's, the blocks GC freed, and the mesh on the plane or
+               the wall; the figures on one {"points": ...} line.
 After the runs no jax and no mrhash_tpu module may be loaded.  The last
-lines are the mesh figures' JSON line, the kernels' JSON record (K1 and K3 with res1_* figures beside
-their res-0 ones, K3 also with the mixed window's one launch and the
-res-1 grid's empty-kernel floor, K4 with the warp-steps it walks and
-those its early exit leaves, K5 with k128_* figures at K = 128), the
-card's name and power limit, and
-{"ok": true, "device": {...}}.
+lines are the mesh and the point-centric figures' JSON lines, the kernels'
+JSON record (K1 and K3 with res1_* figures beside their res-0 ones, K3
+also with the mixed window's one launch and the res-1 grid's empty-kernel
+floor, K2 with sph_* figures on the spherical readback and phase 11's
+launches, K4 with the warp-steps it walks and those its early exit
+leaves, K5 with k128_* figures at K = 128), the card's name and power
+limit, and {"ok": true, "device": {...}}.
 
 Each kernel's bound_ms is the larger of its bytes over 3.35 TB/s and its
 f32 operations over 67 TFLOP/s (an H100 SXM's published peaks), counted
@@ -118,6 +136,8 @@ L_ROWS, L_COLS = 64, 1024
 L_FRAMES, L_COMPARE_AT, L_STEADY = 40, 20, 10
 L_WALL, L_GROUND = 25.0, -1.5   # cylinder radius, ground height (metres)
 L_TOL = 0.3                     # mesh: vertices within 0.3 m of a surface
+L_STARVE = 10                   # phase 11: starve every 10 scans (the cfg: 0)
+L_TIMED = 30                    # phase 11: scans/s over the last 30 scans
 
 # GS: tools/bench_gs.py's protocol (BENCH_GS.json rows for the PSNR bar)
 GS_PARAMS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -680,13 +700,15 @@ def lidar_pose(i):
     return np.array([0.5 * i, 0.0, 0.0], np.float32)
 
 
-def make_lidar_wrapper(device, cloud0, multires=False):
+def make_lidar_wrapper(device, cloud0, multires=False, n_starve=0,
+                       projective=True):
     """The port's GeoWrapper at configurations/newer_college.cfg's settings
     with tools/bench_extra.py's LiDAR capacities (2^18 blocks, 2^16
     buckets, window cap 2^17, 2^13 allocations per scan; multires:
     bench_lidar(multires=True)'s sdf_var_threshold 1.0 and 512 coarsenings
-    per scan); the spherical intrinsics are fit to the first cloud, as the
-    ply runner does."""
+    per scan; phase 11: starvation every n_starve scans, and with
+    projective=False the point-centric update); the spherical intrinsics
+    are fit to the first cloud, as the ply runner does."""
     import dataclasses
 
     from mrhash_tpu_torch.apps.utils.camera import (
@@ -694,10 +716,12 @@ def make_lidar_wrapper(device, cloud0, multires=False):
     from mrhash_tpu_torch.geowrapper import GeoWrapper
     gw = GeoWrapper(sdf_truncation=0.40, sdf_truncation_scale=0.0,
                     integration_weight_sample=1, virtual_voxel_size=0.20,
-                    n_frames_invalidate_voxels=0, voxel_extents_scale=1,
+                    n_frames_invalidate_voxels=n_starve,
+                    voxel_extents_scale=1,
                     marching_cubes_threshold=1.5, min_weight_threshold=5,
                     min_depth=0.2, max_depth=100.0,
                     sdf_var_threshold=MR_THRESHOLD if multires else 0.0,
+                    projective_sdf=projective,
                     num_blocks=1 << 18, num_buckets=1 << 16,
                     max_active_blocks=1 << 17, max_alloc_per_frame=1 << 13,
                     profiling=False, device=device)
@@ -710,9 +734,11 @@ def make_lidar_wrapper(device, cloud0, multires=False):
     return gw
 
 
-def feed_lidar(gw, i, clouds):
+def feed_lidar(gw, i, clouds, normals=False):
+    """Scan i through setPointCloud + compute; normals=True runs the
+    MADtree (what the point-centric update reads)."""
     gw.setCurrPose(lidar_pose(i), [0.0, 0.0, 0.0, 1.0])
-    gw.setPointCloud(clouds[i], False)
+    gw.setPointCloud(clouds[i], normals)
     gw.compute()
 
 
@@ -876,6 +902,221 @@ def compare_small_lidar():
         f"blocks, {int(both.sum())} weighted lanes in both, {flips} weight "
         f"flips, {far} sdf beyond 2e-3, {exact} sdf bit-equal")
     assert flips + far <= bound_n, (flips, far, bound_n)
+
+def compare_c14_keys(depths, clouds):
+    """ROADMAP C14: the allocation candidates computed on the card equal the
+    CPU's, as sets, at full width: the RGB-D tile DDA of phase 4's frames
+    0, 1 and 100 (1200x680, 1 cm; even frames walk the near band, odd ones
+    the far band) and the point-centric voxel walk of one 64x1024 scan
+    (scan 0 of phase 11, its MADtree normals).  Also counts the walk's
+    start points whose quotient by the voxel size, taken on the card by a
+    Python number (a product with its reciprocal), lands in another voxel
+    than the CPU's (the fault the repair removes).  Returns the counts."""
+    import numpy as np
+    import torch
+
+    from mrhash_tpu_torch import native
+    from mrhash_tpu_torch.core.state import MapConfig
+    from mrhash_tpu_torch.ops import camera as C
+    from mrhash_tpu_torch.ops import coords as X
+    from mrhash_tpu_torch.ops import integrate as I
+
+    def key_set(k, m):
+        k = k.cpu().numpy()[m.cpu().numpy()]
+        return {tuple(r) for r in k}
+
+    out = {}
+    # phase 4's settings (make_wrapper), without its pool
+    cfg = MapConfig(alloc_tile=4, virtual_voxel_size=0.01,
+                    sdf_truncation=0.07, max_integration_distance=30.0)
+    steps = cfg.dda_steps(cfg.max_integration_distance)
+    for i in (0, 1, 100):
+        rot, trans, _ = orbit_pose(i)
+        sets = []
+        for dev in ("cpu", "cuda"):
+            cam = C.with_pose(C.make_camera(FX, FY, CX, CY, ROWS, COLS, 0.01,
+                                            30.0, device=dev), rot, trans)
+            depth = torch.from_numpy(depths[i % ORBIT]).to(dev)
+            pc_depth = C.get_depth(cam, C.compute_cloud(cam, depth))
+            sets.append(key_set(*I.alloc_candidates_depth(
+                cfg, cam, pc_depth, steps, frame=i)))
+        out[f"rgbd_{i}"] = len(sets[0] ^ sets[1])
+        log(f"compare C14: RGB-D frame {i}: {len(sets[0])} candidate keys "
+            f"on the CPU, {len(sets[1])} on the card, {out[f'rgbd_{i}']} "
+            f"differ")
+
+    # phase 11's settings (newer_college.cfg); the walk needs only the pose
+    cfg = MapConfig(virtual_voxel_size=0.20, sdf_truncation=0.40,
+                    max_integration_distance=100.0, projective_sdf=False)
+    pts = clouds[0]
+    nrm = native.estimate_normals(pts)[0]
+    walks, starts = [], []
+    for dev in ("cpu", "cuda"):
+        cam = C.with_pose(C.make_camera(1.0, 1.0, 0.0, 0.0, L_ROWS, L_COLS,
+                                        0.2, 100.0, C.SPHERICAL, device=dev),
+                          np.eye(3, dtype=np.float32), lidar_pose(0))
+        points = torch.from_numpy(pts).to(dev)
+        n_dir, rng = I._unit(torch.from_numpy(nrm).to(dev))[0], \
+            I._unit(points)[1]
+        t = X.get_truncation(rng, cfg.sdf_truncation, 0.0)
+        d_min = torch.clamp(rng - t, max=cfg.max_integration_distance)
+        d_max = torch.clamp(rng + t, max=cfg.max_integration_distance)
+        ok = (rng >= 1e-6) & (d_min < d_max)
+        pw_min = C.cam_to_world(cam, points + n_dir * (d_min - rng)[:, None])
+        pw_max = C.cam_to_world(cam, points + n_dir * (d_max - rng)[:, None])
+        vox, visit = I._dda_visit(
+            cfg, pw_min, pw_max, ok,
+            cfg.dda_voxel_steps(cfg.max_integration_distance),
+            block_level=False)
+        walks.append(key_set(vox.reshape(-1, 3), visit.reshape(-1)))
+        # the unrepaired quotient: by a Python number
+        p = pw_min / float(cfg.virtual_voxel_size)
+        starts.append(X._sign_aware_floor(p + torch.sign(p) * 0.5).cpu())
+    out["walk"] = len(walks[0] ^ walks[1])
+    out["walk_starts_by_python_number"] = int(
+        (starts[0] != starts[1]).any(dim=1).sum())
+    log(f"compare C14: point-centric walk of a {L_ROWS}x{L_COLS} scan: "
+        f"{len(walks[0])} visited voxels on the CPU, {len(walks[1])} on the "
+        f"card, {out['walk']} differ; start voxels by a Python-number "
+        f"quotient on the card: {out['walk_starts_by_python_number']} of "
+        f"{pts.shape[0]} differ from the CPU's")
+    bad = {k: v for k, v in out.items() if k != "walk_starts_by_python_number"
+           and v}
+    assert not bad, f"C14: card and CPU candidates differ {bad}"
+    return out
+
+
+def compare_small_points():
+    """The point-centric LiDAR slice (projective_sdf=False, starvation and
+    GC every 2 scans) on the card against the same slice on the CPU (where
+    the tests hold it against the JAX reference): 3 scans of phase 3's
+    16x128 scene with MADtree normals.  Same key set and the same blocks
+    freed by GC; the starve scan's atan2/asin may move a voxel to another
+    pixel, so weight flips are bounded by max(16, 1e-4 x lanes), and sdf
+    agrees within 2e-5 where the weights agree (index_add_'s order)."""
+    import numpy as np
+    import torch
+
+    from mrhash_tpu_torch import native
+    from mrhash_tpu_torch.core import pipeline
+    from mrhash_tpu_torch.core.state import MapConfig, make_state
+    from mrhash_tpu_torch.ops import camera as C
+
+    rows, cols = 16, 128
+    cfg = MapConfig(virtual_voxel_size=0.20, sdf_truncation=0.40,
+                    max_integration_distance=40.0, num_blocks=1 << 12,
+                    num_buckets=1 << 11, max_active_blocks=1 << 11,
+                    max_alloc_per_frame=1 << 11, projective_sdf=False,
+                    n_frames_invalidate_voxels=2)
+    rng = np.random.default_rng(0)
+    poses = [np.array([0.4 * i, 0.0, 0.0], np.float32) for i in range(3)]
+    scans = [lidar_cloud(t, rng, rows, cols, 12.0, np.pi / cols)
+             for t in poses]
+    normals = [native.estimate_normals(p)[0] for p in scans]
+    maps = {}
+    for dev in ("cpu", "cuda"):
+        st = make_state(cfg.num_blocks, cfg.num_buckets, dev)
+        cam0 = C.make_camera(cols / (2 * np.pi), rows / 0.65, cols / 2,
+                             rows / 2, rows, cols, 0.2, 40.0, C.SPHERICAL,
+                             device=dev)
+        freed = []
+        for t, pts, nrm in zip(poses, scans, normals):
+            cam = C.with_pose(cam0, np.eye(3, dtype=np.float32), t)
+            st, stats = pipeline.integrate_points(
+                cfg, st, cam, torch.from_numpy(pts).to(dev),
+                torch.from_numpy(nrm).to(dev))
+            freed.append(stats["gc_freed"])
+        occ = (st.table.ptr != -2).cpu().numpy()
+        pos = st.table.pos.cpu().numpy()[occ]
+        rows_ = st.table.ptr.cpu().numpy()[occ] // 512
+        order = np.lexsort(pos.T)
+        maps[dev] = (pos[order], {f: getattr(st.pool, f).cpu().numpy()
+                                  [rows_[order]] for f in
+                                  ("sdf", "sumsq", "weight")}, freed)
+    (pc, mc, fc), (pg, mg, fg) = maps["cpu"], maps["cuda"]
+    assert np.array_equal(pc, pg), "block key sets differ"
+    assert fc == fg, ("GC freed other counts", fc, fg)
+    assert int((mc["weight"] > 0).sum()) > 10000
+    flips = int((mc["weight"] != mg["weight"]).sum())
+    agree = (mc["weight"] == mg["weight"]) & (mc["weight"] > 0)
+    err = float(np.abs(mc["sdf"] - mg["sdf"])[agree].max())
+    bound_n = max(16, int(mc["weight"].size * 1e-4))
+    log(f"compare point-centric LiDAR slice cuda vs cpu (16x128, 3 scans, "
+        f"starve on scan 2): {len(pc)} blocks, GC freed {fc} per scan on "
+        f"both, {flips} weight flips, max sdf |diff| {err:.3g}")
+    assert flips <= bound_n and err <= TOL["sdf"], (flips, err)
+    return dict(blocks=len(pc), gc_freed=fc, flips=flips, sdf_err=err)
+
+
+def starve_readback(gw, cam):
+    """The starvation z-buffer of the wrapper's window under `cam` and the
+    lanes that read it back (ops/integrate.py::starve_mask's inputs to K2):
+    (zimg f32[2,H,W], row, col, ok, depth)."""
+    import torch
+
+    from mrhash_tpu_torch.ops import camera as C
+    from mrhash_tpu_torch.ops import coords as X
+    from mrhash_tpu_torch.ops import integrate as I
+    cfg = gw.cfg
+    _, bpos, _, bres = I.compact_active(cfg, gw.state.table)
+    pi, valid = I._block_voxel_grid(bpos, bres)
+    pcam = C.world_to_cam(cam, X.virtual_voxel_pos_to_world(
+        cfg.virtual_voxel_size, pi))
+    row, col, ok = C.project_point(cam, pcam)
+    z = C.get_depth(cam, pcam)
+    ok = (ok & valid & (z >= cam.min_depth)).contiguous()
+    HW = cam.rows * cam.cols
+    pix = torch.where(ok, row.long() * cam.cols + col, HW).reshape(-1)
+    zbuf = torch.full((HW + 1,), I.FAR, dtype=torch.float32,
+                      device=z.device)
+    zbuf.scatter_reduce_(0, pix, torch.where(ok, z, I.FAR).reshape(-1),
+                         "amin")
+    zimg = torch.zeros((2, cam.rows, cam.cols), dtype=torch.float32,
+                       device=z.device)
+    zimg[0] = zbuf[:HW].reshape(cam.rows, cam.cols)
+    return zimg, row.contiguous(), col.contiguous(), ok, z
+
+
+def compare_k2_spherical(clouds):
+    """K2 on the spherical z-buffer (phase 11's starvation readback): the
+    point-centric wrapper after L_STARVE scans, then the readback of its
+    window under the last scan's pose, 64x1024, columns wrapping at +-pi;
+    K2 equal to its twin, timed against the twin and torch.take as
+    compare_kernels times the RGB-D readback."""
+    import torch
+
+    from mrhash_tpu_torch.ops import camera as C
+    from mrhash_tpu_torch.ops import sample_image as SI
+
+    gw = make_lidar_wrapper("cuda", clouds[0], n_starve=L_STARVE,
+                            projective=False)
+    for i in range(L_STARVE):
+        feed_lidar(gw, i, clouds, True)
+    cam = C.with_pose(gw.camera, gw.curr_rot, lidar_pose(L_STARVE - 1))
+    zimg, row, col, ok, z = starve_readback(gw, cam)
+    A = row.shape[0]
+    del gw
+    sk = SI.sample_image(zimg, row, col, ok)
+    st = SI.sample_image_ref(zimg, row, col, ok)
+    torch.cuda.synchronize()
+    err = float((sk - st).abs().max())
+    n_front = int((ok & (z == sk[:, 0, :])).sum())
+    log(f"compare K2 spherical: window {A} blocks, {int(ok.sum())} in-image "
+        f"lanes of {L_ROWS}x{L_COLS}, {n_front} front-most, max |diff| "
+        f"{err}")
+    assert torch.equal(sk, st), "K2 differs from its twin"
+    assert n_front > 10000
+    HW = L_ROWS * L_COLS
+    flat = torch.where(ok, row.long() * L_COLS + col, 0)[:, None, :]
+    idx = flat + torch.arange(2, device=row.device)[None, :, None] * HW
+    t = time_in_turns(lambda: SI._launch(zimg, row, col, ok),
+                      lambda: SI.sample_image_ref(zimg, row, col, ok),
+                      lambda: torch.take(zimg, idx))
+    lanes = A * 512
+    rec = kernel_record(t, err, lanes * 17 + 2 * HW * 4, lanes * 2)
+    rec.update(window_blocks=A)
+    return rec
+
 
 # ---------------------------------------------------------------------------
 # GS scene: tools/bench_gs.py's textured box room, in numpy
@@ -1518,7 +1759,6 @@ def run_lidar(clouds, multires=False):
     """Phase 5 (or 8 with multires): L_FRAMES scans through
     GeoWrapper.compute, then streamAllOut + extractMesh.  Returns
     (launches of K3's paths over the scans, numbers)."""
-    import numpy as np
     import torch
 
     from mrhash_tpu_torch.ops import fused_integrate_points as FIP
@@ -1560,6 +1800,19 @@ def run_lidar(clouds, multires=False):
         assert launches["fused_integrate_points_rows"] == L_FRAMES, launches
         assert launches["fused_integrate_points_rows_res1"] == 0, launches
 
+    lidar_mesh(gw, tag)
+    return launches, dict(median_ms=statistics.median(steady),
+                          mean_ms=statistics.fmean(steady),
+                          fps=1e3 / statistics.fmean(steady),
+                          peak_gib=peak / 2**30, window=occupied[-1],
+                          res1_blocks=n1)
+
+
+def lidar_mesh(gw, tag):
+    """streamAllOut + extractMesh of a LiDAR phase's map: more than 10,000
+    vertices, all finite, more than 95 % of them within L_TOL of the
+    ground or the wall.  Returns (vertices, the on-surface share)."""
+    import numpy as np
     t0 = time.perf_counter()
     gw.streamAllOut()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1577,11 +1830,90 @@ def run_lidar(clouds, multires=False):
         f"or the wall ({float(ground.mean()):.4f} ground, "
         f"{float(wall.mean()):.4f} wall)")
     assert on > 0.95, on
-    return launches, dict(median_ms=statistics.median(steady),
-                          mean_ms=statistics.fmean(steady),
-                          fps=1e3 / statistics.fmean(steady),
-                          peak_gib=peak / 2**30, window=occupied[-1],
-                          res1_blocks=n1)
+    return int(v.shape[0]), on
+
+
+# ---------------------------------------------------------------------------
+# phase 11: LiDAR, point-centric and starved
+# ---------------------------------------------------------------------------
+
+def run_points(clouds, projective):
+    """Phase 11: phase 5's L_FRAMES scans with starvation every L_STARVE
+    scans (scans 10, 20 and 30 starve: the reference starves where
+    frame > 0 and frame % n == 0) and GC on every scan, through
+    GeoWrapper.compute: pass (a) the point-centric update (projective_sdf
+    False, MADtree normals from setPointCloud(points, True)), pass (b) the
+    projective update (K3).  Each starve reads its 64x1024 z-buffer back
+    through K2, so K2 launches exactly 3 times; K3 launches on every scan
+    of pass (b) and never in pass (a).  Then the mesh on the ground and
+    the wall.  Returns (launches, numbers)."""
+    import torch
+
+    from mrhash_tpu_torch.ops import fused_integrate_points as FIP
+    from mrhash_tpu_torch.ops import sample_image as SI
+
+    tag = "points (b) projective" if projective else "points (a) point-centric"
+    gw = make_lidar_wrapper("cuda", clouds[0], n_starve=L_STARVE,
+                            projective=projective)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    SI.launch_count = FIP.launch_count = FIP.res1_launch_count = 0
+    frame_ms, set_ms, visited, distinct, freed = [], [], [], [], []
+    for i in range(L_FRAMES):
+        t0 = time.perf_counter()
+        gw.setCurrPose(lidar_pose(i), [0.0, 0.0, 0.0, 1.0])
+        gw.setPointCloud(clouds[i], not projective)   # (a): the MADtree
+        t1 = time.perf_counter()
+        gw.compute()
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        set_ms.append((t1 - t0) * 1e3)
+        st = gw.last_stats
+        visited.append(st.get("visited_keys", 0))
+        distinct.append(st.get("distinct_keys", 0))
+        freed.append(st["gc_freed"])
+    launches = {"sample_image": SI.launch_count,
+                "fused_integrate_points_rows": FIP.launch_count,
+                "fused_integrate_points_rows_res1": FIP.res1_launch_count}
+    peak = torch.cuda.max_memory_allocated()
+    timed = frame_ms[-L_TIMED:]
+    fps = 1e3 / statistics.fmean(timed)
+    st = gw.last_stats
+    log(f"{tag}: {L_FRAMES} scans of {L_ROWS}x{L_COLS}, starve every "
+        f"{L_STARVE}, launches {launches}")
+    log(f"{tag}: scans {L_FRAMES - L_TIMED}-{L_FRAMES - 1}: median "
+        f"{statistics.median(timed):.3f} ms, mean "
+        f"{statistics.fmean(timed):.3f} ms, {fps:.2f} scans/s, of which "
+        f"setPointCloud median {statistics.median(set_ms[-L_TIMED:]):.3f} "
+        f"ms; window last {st['occupied_blocks']} blocks, high_free "
+        f"{st['high_free']}")
+    if not projective:
+        log(f"{tag}: visited voxels per scan median "
+            f"{statistics.median(visited):.0f} (min {min(visited)}, max "
+            f"{max(visited)}), distinct blocks per scan median "
+            f"{statistics.median(distinct):.0f} (min {min(distinct)}, max "
+            f"{max(distinct)})")
+    log(f"{tag}: GC freed {sum(freed)} blocks over the run, "
+        f"{[freed[i] for i in range(L_STARVE, L_FRAMES, L_STARVE)]} on the "
+        f"starve scans; peak device memory {peak / 2**30:.3f} GiB")
+    n_starves = len(range(L_STARVE, L_FRAMES, L_STARVE))
+    assert launches["sample_image"] == n_starves, launches
+    assert launches["fused_integrate_points_rows"] == (
+        L_FRAMES if projective else 0), launches
+    assert launches["fused_integrate_points_rows_res1"] == 0, launches
+    if not projective:
+        assert min(distinct) > 1000 and min(visited) > 100000, (
+            min(distinct), min(visited))
+    verts, on = lidar_mesh(gw, tag)
+    return launches, dict(
+        fps=fps, median_ms=statistics.median(timed),
+        mean_ms=statistics.fmean(timed),
+        set_point_cloud_ms=statistics.median(set_ms[-L_TIMED:]),
+        peak_gib=peak / 2**30,
+        window=st["occupied_blocks"], gc_freed=sum(freed),
+        visited_median=statistics.median(visited),
+        distinct_median=statistics.median(distinct), vertices=verts,
+        on_surface=on)
 
 
 # ---------------------------------------------------------------------------
@@ -2098,6 +2430,8 @@ def main():
     compare_small_scene()
     compare_small_scene(multires=True)
     compare_small_lidar()
+    c14 = compare_c14_keys(depths, clouds)
+    small_points = compare_small_points()
     compare_small_gs()
     compare_small_walk()
     compare_qtree(train[0]["rgb"])
@@ -2129,6 +2463,12 @@ def main():
         f"{k3r['res1_blocks']} res-1 blocks of a {k3r['window_blocks']}-block "
         f"window; the whole window in one launch {k3r['mixed_ms']:.4f} ms "
         f"(bound {k3r['mixed_bound_ms']:.4f} ms) [{smi}]")
+    k2s = compare_k2_spherical(clouds)
+    torch.cuda.empty_cache()
+    log(f"compare: K2 spherical {k2s['ms']:.4f} ms (twin "
+        f"{k2s['plain_ms']:.4f} ms, torch.take {k2s['library_ms']:.4f} ms, "
+        f"bound {k2s['bound_ms']:.4f} ms, {k2s['bytes']} B) over "
+        f"{k2s['window_blocks']} blocks [{smi}]")
     k4, k5, k5f = compare_blend_kernels(train)
     torch.cuda.empty_cache()
     for name, k in (("K4", k4), ("K5", k5), ("K5", k5f)):
@@ -2209,6 +2549,18 @@ def main():
     del grid7, grid9, host7, host9
     torch.cuda.empty_cache()
 
+    # 11. LiDAR, point-centric and starved: pass (a) the point-centric
+    # update, pass (b) the projective one, both starving every L_STARVE
+    p_launches, prun = {}, {}
+    for name, projective in (("a", False), ("b", True)):
+        p_launches[name], prun[name] = run_points(clouds, projective)
+        torch.cuda.empty_cache()
+        r = prun[name]
+        log(f"points ({name}): {r['fps']:.2f} scans/s, median "
+            f"{r['median_ms']:.3f} ms/scan, GC freed {r['gc_freed']}, peak "
+            f"{r['peak_gib']:.3f} GiB, K2/K3 launches {p_launches[name]} "
+            f"[{smi}]")
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "mrhash_tpu"))
     assert not loaded, f"the port loaded {loaded}"
@@ -2262,6 +2614,12 @@ def main():
                 "one launch serves both resolutions: a multi-res scan's "
                 "launch counts in multires_launches (res 0) and "
                 "res1_launches (res 1) alike")
+        if name == "sample_image":     # phase 11's spherical readback
+            entry["points_launches"] = {
+                k: v["sample_image"] for k, v in p_launches.items()}
+            entry.update({"sph_" + k: k2s[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")})
         if name == "blend_forward":
             entry.update({k: k4[k] for k in ("warp_steps", "exit_warp_steps")})
         if name == "blend_backward":   # at GSFinalOpt's cap, K = 128
@@ -2274,6 +2632,8 @@ def main():
         card=smi, max_cells=geowrapper.MESH_MAX_CELLS,
         chunk=geowrapper.MESH_CHUNK, small_chunk_batches=small_batches,
         viewer=vrun, rgbd_fps=run["fps"], **meshes)}))
+    print(json.dumps({"points": dict(card=smi, c14=c14,
+                                     small=small_points, **prun)}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -131,6 +131,10 @@ class MapConfig:
     min_weight_threshold: int = 1
     marching_cubes_threshold: float = 1.5
     vertices_merging_threshold: float = 0.0
+    # LiDAR SDF: True = projective (range difference; the frame step runs
+    # kernel K3's voxel-centric update), False = point-to-plane through
+    # the point-centric walk (ops/integrate.py::integrate_points_sdf)
+    projective_sdf: bool = True
 
     # --- capacities ---------------------------------------------------------
     num_blocks: int = 1 << 17
@@ -167,3 +171,11 @@ class MapConfig:
         t = self.sdf_truncation + self.sdf_truncation_scale * max_depth
         band = 2.0 * t * (3.0 ** 0.5)
         return int(band / self.metric_block_size + 0.999) + self.dda_extra_steps
+
+    def dda_voxel_steps(self, max_depth: float) -> int:
+        """Voxel-level trip count of the point-centric walk (same formula
+        as the reference MapConfig.dda_voxel_steps)."""
+        t = self.sdf_truncation + self.sdf_truncation_scale * max_depth
+        band = 2.0 * t * (3.0 ** 0.5)
+        return (int(band / self.virtual_voxel_size + 0.999)
+                + self.dda_extra_steps)

@@ -16,10 +16,11 @@ compute() first streams the farthest blocks to the host chunk grid and
 reloads the host chunks near the camera (core/streaming.py), so a scene
 larger than the device pool keeps integrating.  extractMesh runs the host
 sweep (native/), or with MRHASH_HOST_MESH=0 the device sweep
-(ops/meshing.py), as the reference selects them.  Out of these slices,
-and raising instead of skipping: the non-projective LiDAR update
-(projective_sdf=False) and starvation under the spherical model
-(n_frames_invalidate_voxels > 0 with a spherical camera).
+(ops/meshing.py), as the reference selects them.  A LiDAR scan takes
+kernel K3's projective update, or with projective_sdf=False the
+point-centric walk with the point-to-plane SDF over the cloud's normals;
+n_frames_invalidate_voxels > 0 starves and garbage-collects the map on
+both paths and under both camera models.
 """
 from __future__ import annotations
 
@@ -115,9 +116,6 @@ class GeoWrapper:
         self._viewer_future = None
         self._viewer_pool = (concurrent.futures.ThreadPoolExecutor(1)
                              if self.viewer_active else None)
-        # projective_sdf only steers the LiDAR update; RGB-D ignores it, as
-        # in the reference
-        self._projective_sdf = bool(projective_sdf)
         free = _device_free_bytes(self.device)
         if gs_optimization_param_path:
             free = int(free * P.GS_SCALING_RATIO)
@@ -145,6 +143,9 @@ class GeoWrapper:
             min_weight_threshold=int(min_weight_threshold),
             marching_cubes_threshold=float(marching_cubes_threshold),
             vertices_merging_threshold=float(vertices_merging_threshold),
+            # steers the LiDAR update only; RGB-D ignores it, as in the
+            # reference
+            projective_sdf=bool(projective_sdf),
             num_blocks=int(num_blocks),
             num_buckets=int(num_buckets),
             max_active_blocks=int(max_active_blocks),
@@ -178,17 +179,7 @@ class GeoWrapper:
     def setCamera(self, fx, fy, cx, cy, rows, cols, min_depth, max_depth,
                   camera_model=0):
         model = int(camera_model)
-        if model == C.SPHERICAL:
-            if not self._projective_sdf:
-                raise NotImplementedError(
-                    "projective_sdf=False (the point-centric LiDAR update): "
-                    "not ported yet (ROADMAP A10)")
-            if self.cfg.n_frames_invalidate_voxels > 0:
-                raise NotImplementedError(
-                    "starvation under the spherical camera model "
-                    "(n_frames_invalidate_voxels > 0): not ported yet "
-                    "(ROADMAP A10)")
-        elif model != C.PINHOLE:
+        if model not in (C.PINHOLE, C.SPHERICAL):
             raise ValueError(f"setCamera: unknown camera model {model}")
         self.camera = C.make_camera(fx, fy, cx, cy, rows, cols, min_depth,
                                     max_depth, model, device=self.device)
@@ -228,8 +219,9 @@ class GeoWrapper:
         normals) (pygeowrapper.cpp:66-67); points [N,3] in the sensor frame.
         Normals (MADtree, from the host library, when compute_normals) and
         per-point weights are kept as the reference keeps them; the
-        projective update reads neither.  Unlike the reference, the cloud
-        is not padded to a power-of-two bucket (PORT_NOTES.md P16)."""
+        point-centric update (projective_sdf=False) reads the normals, the
+        projective one neither.  Unlike the reference, the cloud is not
+        padded to a power-of-two bucket (PORT_NOTES.md P16)."""
         points = np.asarray(points, np.float32).reshape(-1, 3)
         if isinstance(arg2, (bool, np.bool_)):
             if arg2:
@@ -259,8 +251,13 @@ class GeoWrapper:
         cam = C.with_pose(self.camera, self.curr_rot, self.curr_trans)
         with self.integration_profiler.event():
             if lidar:
+                # the point-centric update takes the normals and weights
+                extra = (() if self.cfg.projective_sdf else tuple(
+                    torch.from_numpy(a).to(self.device)
+                    for a in (self._normals, self._weights)))
                 self.state, stats = pipeline.integrate_points(
-                    self.cfg, self.state, cam, self._points.to(self.device))
+                    self.cfg, self.state, cam, self._points.to(self.device),
+                    *extra)
             else:
                 depth = self._depth_img.to(self.device)
                 rgb = self._rgb_img.to(self.device)
@@ -602,6 +599,15 @@ class GeoWrapper:
         m[:3, :3] = self.curr_rot
         m[:3, 3] = self.curr_trans
         return m
+
+    def getPointCloud(self):
+        """The cloud setPointCloud kept, f32[N,3] (the whole cloud: the
+        port does not pad it, PORT_NOTES.md P16)."""
+        return None if self._points is None else self._points.numpy()
+
+    def getNormals(self):
+        """The normals setPointCloud kept, f32[N,3]."""
+        return self._normals
 
     def getVertices(self):
         return self.mesh.vertices

@@ -6,14 +6,34 @@ dimensions; coordinates ride in a trailing axis of size 3.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from mrhash_tpu_torch import params as P
 
 
+@functools.lru_cache(maxsize=None)
+def on_device(values, device: torch.device):
+    """A number or a tuple as an f32 tensor on `device`, built once.  The
+    frame step and the mesh sweep pass the voxel size and
+    cfg.voxel_extents to the transforms below so: a tuple would be
+    uploaded on every call (an upload from host memory is a host sync),
+    and on a card a quotient by a Python number is a product with its
+    reciprocal, an ulp off the CPU's and the reference's at exact voxel
+    boundaries (PORT_NOTES.md P55)."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+def _factor(v):
+    """A voxel size as a multiplier: an f32 tensor as it is, else a
+    float."""
+    return v if torch.is_tensor(v) else float(v)
+
+
 def virtual_voxel_pos_to_world(virtual_voxel_size, voxel_pos):
     """voxel_hash_utils.cuh:66-72 — integer/float voxel coords -> metres."""
-    return voxel_pos.to(torch.float32) * float(virtual_voxel_size)
+    return voxel_pos.to(torch.float32) * _factor(virtual_voxel_size)
 
 
 def _sign_aware_floor(x, eps=P.COORD_EPSILON):
@@ -30,7 +50,7 @@ def virtual_voxel_pos_to_sdf_block(virtual_voxel_pos, virtual_voxel_size,
     pw = virtual_voxel_pos_to_world(virtual_voxel_size, vp)
     metric_block = (torch.as_tensor(voxel_extents, dtype=torch.float32,
                                     device=pw.device)
-                    * float(P.SDF_BLOCK_SIZE) * float(virtual_voxel_size))
+                    * float(P.SDF_BLOCK_SIZE) * _factor(virtual_voxel_size))
     return _sign_aware_floor(pw / metric_block).to(torch.int32)
 
 
@@ -66,11 +86,16 @@ def sdf_block_to_virtual_voxel_pos(sdf_block):
 
 def world_point_to_virtual_voxel_pos(virtual_voxel_size, point):
     """voxel_hash_utils.cuh:143-151 — nearest virtual voxel (round half
-    away from zero).  virtual_voxel_size: a number, or an f32 tensor on
-    the point's device; on a card only the tensor gives the correctly
-    rounded quotient (CUDA divides by a Python number as a product with
-    its reciprocal, which can be an ulp off)."""
+    away from zero).  virtual_voxel_size: an f32 tensor on the point's
+    device (on_device), or on the CPU also a number: on a card only the
+    tensor gives the correctly rounded quotient (CUDA divides by a Python
+    number as a product with its reciprocal, which can be an ulp off), so
+    a number there raises."""
     if not torch.is_tensor(virtual_voxel_size):
+        if point.device.type != "cpu":
+            raise ValueError("world_point_to_virtual_voxel_pos: pass the "
+                             "voxel size as a tensor on the point's device "
+                             "(coords.on_device)")
         virtual_voxel_size = float(virtual_voxel_size)
     p = point.to(torch.float32) / virtual_voxel_size
     approx = p + torch.sign(p) * 0.5

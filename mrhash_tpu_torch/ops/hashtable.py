@@ -157,6 +157,40 @@ def lookup(table: HashTable, keys):
     return found, slot, ptr, res
 
 
+def lookup_dedup(table: HashTable, keys, valid, slot_map):
+    """lookup() of a highly duplicated key batch (the point-centric LiDAR
+    walk visits ~N*K keys, only ~occupied-blocks distinct ones), exact:
+    the distinct valid keys (torch.unique), one exact lookup each, and a
+    gather back.  slot_map i64[capacity] maps a table slot to the caller's
+    window entry, -1 outside the window.
+
+    Returns (found bool[M], wslot i64[M], lane0 i32[M], res i32[M],
+    n_distinct), the reference's slot_map return plus the distinct key
+    count: a key is found when the table holds it in a slot of the window;
+    wslot is that entry, lane0 a res-1 block's window start in its row (0
+    for res 0).  The reference elects one representative per salted
+    scratch cell, so distinct keys that share a cell miss this frame (its
+    D15); here every distinct key resolves (PORT_NOTES.md P56)."""
+    M = keys.shape[0]
+    dev = keys.device
+    found = torch.zeros(M, dtype=torch.bool, device=dev)
+    wslot = torch.zeros(M, dtype=torch.int64, device=dev)
+    lane0 = torch.zeros(M, dtype=torch.int32, device=dev)
+    res = torch.zeros(M, dtype=torch.int32, device=dev)
+    vidx = torch.nonzero(valid).flatten()
+    if vidx.numel() == 0:
+        return found, wslot, lane0, res, 0
+    uniq, inv = torch.unique(keys[vidx], dim=0, return_inverse=True)
+    f, s, p, r = lookup(table, uniq)
+    w = torch.where(f, slot_map[s.clamp(min=0)], -1)
+    f = f & (w >= 0)
+    found[vidx] = f[inv]
+    wslot[vidx] = torch.where(f, w, 0)[inv]
+    lane0[vidx] = torch.where(f, p % P.TOTAL_SDF_BLOCK_SIZE, 0)[inv]
+    res[vidx] = torch.where(f, r, 0)[inv]
+    return found, wslot, lane0, res, uniq.shape[0]
+
+
 def _heap_draw(heap, count: int, want):
     """Draw one free id per True in `want` (prefix-sum ranked).  Returns
     (ids i32[M] (-1 where not drawn), got bool[M], count')."""

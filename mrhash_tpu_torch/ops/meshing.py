@@ -35,17 +35,6 @@ TRIS_PER_CELL = 5     # the most triangles a regular Transvoxel cell emits
 
 
 @functools.lru_cache(maxsize=None)
-def _on_device(values, device: torch.device):
-    """A number or a tuple as an f32 tensor on `device`, built once.  The
-    coordinate transforms take cfg.voxel_extents and the voxel size so:
-    a tuple would be uploaded on every query (an upload from host memory
-    is a host sync), and on a card a quotient by a Python number is a
-    product with its reciprocal, an ulp off the host sweep's and the
-    reference's at exact voxel boundaries (PORT_NOTES.md P55)."""
-    return torch.tensor(values, dtype=torch.float32, device=device)
-
-
-@functools.lru_cache(maxsize=None)
 def _tables(device: torch.device) -> dict:
     """The Transvoxel tables, cube corners and 27-ring offsets as tensors
     on `device`, built once per device."""
@@ -103,9 +92,9 @@ def _resolve(cfg: MapConfig, table: H.HashTable, pos, ctx):
     one hash lookup."""
     vvs = cfg.virtual_voxel_size
     pi = X.world_point_to_virtual_voxel_pos(
-        _on_device(float(vvs), pos.device), pos)
+        X.on_device(float(vvs), pos.device), pos)
     blk = X.virtual_voxel_pos_to_sdf_block(
-        pi, vvs, _on_device(tuple(cfg.voxel_extents), pos.device))
+        pi, vvs, X.on_device(tuple(cfg.voxel_extents), pos.device))
     if ctx is not None:
         found, ptr, res = _ring_resolve(ctx, blk)
         return pi, found, ptr, res

@@ -2,11 +2,14 @@
 builds without writing into the repo's `native/` directory.
 
 - In a fresh interpreter, importing mrhash_tpu_torch, its GeoWrapper, its
-  native loader, all three runners and the mesh sweep's modules (meshing,
-  transvoxel, raycast) leaves no `jax` and no `mrhash_tpu` module in
-  sys.modules; so does importing every module of its Gaussian
-  Splatting package and the GS runner.
-- With tqdm missing (the card's machine has none), all five runners
+  native loader, the RGB-D and LiDAR runners (rosbag_runner and its
+  readers point_cloud2, parse_trajectory, parse_calib_file too) and the
+  mesh sweep's modules (meshing, transvoxel, raycast) leaves no `jax` and
+  no `mrhash_tpu` module in sys.modules, and neither `rosbags` nor `yaml`,
+  which the VBR runner imports only when it opens a bag or a calibration
+  file; so does importing every module of its Gaussian Splatting package
+  and the GS runner.
+- With tqdm missing (the card's machine has none), all six runners
   import and rgbd_runner's frame loop runs: two in-memory frames through a
   CPU GeoWrapper, with the plain progress lines in place of the bar.
 - Building the port's host library puts it under the build directory it
@@ -27,11 +30,16 @@ import mrhash_tpu_torch.native
 import mrhash_tpu_torch.apps.rgbd_runner
 import mrhash_tpu_torch.apps.ply_runner
 import mrhash_tpu_torch.apps.kitti_runner
+import mrhash_tpu_torch.apps.rosbag_runner
+import mrhash_tpu_torch.apps.utils.parse_calib_file
+import mrhash_tpu_torch.apps.utils.parse_trajectory
+import mrhash_tpu_torch.apps.utils.point_cloud2
 import mrhash_tpu_torch.ops.meshing
 import mrhash_tpu_torch.ops.raycast
 import mrhash_tpu_torch.ops.transvoxel
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "mrhash_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "mrhash_tpu", "rosbags",
+                                    "yaml"))
 print(repr(bad))
 """
 
@@ -78,6 +86,7 @@ import mrhash_tpu_torch.apps.kitti_runner
 import mrhash_tpu_torch.apps.ply_runner
 import mrhash_tpu_torch.apps.rgbd_gs_runner
 import mrhash_tpu_torch.apps.streamer_example
+import mrhash_tpu_torch.apps.rosbag_runner
 from mrhash_tpu_torch.apps.rgbd_runner import integrate_frames
 from mrhash_tpu_torch.geowrapper import GeoWrapper
 

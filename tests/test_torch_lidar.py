@@ -28,12 +28,15 @@ jit contracts `voxel * vvs - t` into an FMA, PORT_NOTES.md P4).
 - (e) on the card: K3 against its twin: the map exactly, the flags'
   sumsq sum within rounding (another summation order).
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
+from mrhash_tpu_torch import native
 from mrhash_tpu_torch import params as P
-from mrhash_tpu_torch.core import convert, pipeline
+from mrhash_tpu_torch.core import convert
 from mrhash_tpu_torch.core.state import MapConfig, make_state
 from mrhash_tpu_torch.geowrapper import GeoWrapper
 from mrhash_tpu_torch.ops import camera as C
@@ -86,6 +89,16 @@ def _frames():
         t = np.array([0.4 * i, 0.1 * i, 0.0], np.float32)
         out.append((t, _cloud(t, rng)))
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _normals(i):
+    """MADtree normals of scan i (the port's host library), f32[N,3]; the
+    normal of point 7 is zero (it walks a degenerate segment)."""
+    _, pts = _frames()[i]
+    n = np.array(native.estimate_normals(pts)[0], np.float32)
+    n[7] = 0.0
+    return n
 
 
 def _port_cam(t, device="cpu"):
@@ -396,24 +409,79 @@ def test_slice_matches_reference(ref):
     assert n_pix <= max(16, int(g["weight"].size * 1e-4))
 
 
+def _ref_starved(projective):
+    """Reference states and stats after each scan with starvation and GC
+    every 2 scans, op by op: the fused spherical kernel in interpret mode,
+    or (projective=False) the point-centric update over _normals with a
+    lookup scratch of 2^22 cells, where it drops nothing (P56)."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from mrhash_tpu.core import pipeline as JP
+    from mrhash_tpu.core.state import MapConfig as JMapConfig
+    from mrhash_tpu.core.state import make_state as jmake_state
+
+    kw = (dict(sample_mode="fused", pallas_interpret=True) if projective
+          else dict(projective_sdf=False, lookup_dedup_scratch=1 << 22))
+    jcfg = JMapConfig(**dict(CFG, n_frames_invalidate_voxels=2, **kw))
+    n = ROWS * COLS
+    state = jmake_state(jcfg.num_blocks, jcfg.num_buckets)
+    states, stats = [], []
+    with jax.disable_jit():
+        for i, (t, pts) in enumerate(_frames()):
+            state, st = JP.integrate_points(
+                jcfg, state, _jcam(t), jnp.asarray(pts),
+                jnp.asarray(_normals(i)), jnp.ones((n,)),
+                jnp.ones((n,), bool))
+            states.append(jax.device_get(state))
+            stats.append({k: int(v) for k, v in st.items()})
+    return states, stats
+
+
 def test_unported_lidar_options_raise():
-    kw = dict(min_depth=0.2, max_depth=MAX_D, num_blocks=1 << 8,
-              profiling=False, device="cpu")
-    gw = GeoWrapper(0.40, 0.0, 1, 0.20, 5, 1, **kw)
-    with pytest.raises(NotImplementedError, match="starvation"):
+    """The LiDAR options that raised until the point-centric update was
+    ported (projective_sdf=False, and n_frames_invalidate_voxels > 0
+    under the spherical model) now run: three scans through
+    GeoWrapper(device="cpu") with starvation and GC every 2 scans (scan 2
+    starves), on the point-centric and on the projective update, against
+    the reference's pipeline.integrate_points.  The stats are the
+    reference's after every scan; the maps by block key: weights equal,
+    sdf within 2e-5 and sumsq within 5e-4 (point-centric: index_add_'s
+    summation order), or the fused bounds of _assert_close_maps
+    (projective, P15)."""
+    for projective in (False, True):
+        states, stats = _ref_starved(projective)
+        gw = GeoWrapper(0.40, 0.0, 1, 0.20, 2, 1, min_depth=0.2,
+                        max_depth=MAX_D, num_blocks=CFG["num_blocks"],
+                        num_buckets=CFG["num_buckets"],
+                        max_active_blocks=CFG["max_active_blocks"],
+                        max_alloc_per_frame=CFG["max_alloc_per_frame"],
+                        projective_sdf=projective, profiling=False,
+                        device="cpu")
         gw.setCamera(*CAM, camera_model=C.SPHERICAL)
-    gw = GeoWrapper(0.40, 0.0, 1, 0.20, 0, 1, projective_sdf=False, **kw)
-    with pytest.raises(NotImplementedError, match="projective_sdf"):
-        gw.setCamera(*CAM, camera_model=C.SPHERICAL)
-    cfg = MapConfig(**dict(CFG, n_frames_invalidate_voxels=2))
-    st = make_state(cfg.num_blocks, cfg.num_buckets)
-    t, pts = _frames()[0]
-    for _ in range(2):        # GC runs on K3's flags; starve frame raises
-        st, _ = pipeline.integrate_points(cfg, st, _port_cam(t),
-                                          torch.from_numpy(pts))
-    with pytest.raises(NotImplementedError, match="spherical"):
-        pipeline.integrate_points(cfg, st, _port_cam(t),
-                                  torch.from_numpy(pts))
+        freed = 0
+        for i, (t, pts) in enumerate(_frames()):
+            gw.setCurrPose(t, [0.0, 0.0, 0.0, 1.0])
+            gw.setPointCloud(pts, _normals(i))
+            np.testing.assert_array_equal(gw.getNormals(), _normals(i))
+            gw.compute()
+            for k in ("occupied_blocks", "occupied_total", "high_free",
+                      "frame", "unserved_blocks"):
+                assert gw.last_stats[k] == stats[i][k], (projective, i, k)
+            freed += gw.last_stats["gc_freed"]
+        assert freed > 0, "GC freed nothing"
+        g, r = _rows_by_key(gw.state, states[-1])
+        if projective:
+            flips, d = _assert_close_maps(g, r)
+            print(f"projective: {flips} weight flips, max sdf difference "
+                  f"{d:.3g}; GC freed {freed}")
+            continue
+        np.testing.assert_array_equal(g["weight"], r["weight"])
+        w = r["weight"] > 0
+        assert int(w.sum()) > 5000
+        assert float(np.abs(g["sdf"] - r["sdf"])[w].max()) <= 2e-5
+        assert float(np.abs(g["sumsq"] - r["sumsq"])[w].max()) <= 5e-4
+        print(f"point-centric: {int(w.sum())} weighted lanes, equal "
+              f"weights; GC freed {freed}")
 
 
 # ---------------------------------------------------------------------------

@@ -254,9 +254,14 @@ def test_geowrapper_refuses_what_is_not_ported():
               integration_weight_sample=1, virtual_voxel_size=0.05,
               n_frames_invalidate_voxels=0, voxel_extents_scale=1,
               num_blocks=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="projective_sdf"):
-        GeoWrapper(projective_sdf=False, **kw).setCamera(
-            16.0, 8.0, 64.0, 8.0, 16, 128, 0.2, 40.0, C.SPHERICAL)
+    # the point-centric LiDAR update is ported now: the option is taken
+    # (tests/test_torch_lidar_points.py runs it); an unknown camera model
+    # is refused
+    gw = GeoWrapper(projective_sdf=False, **kw)
+    gw.setCamera(16.0, 8.0, 64.0, 8.0, 16, 128, 0.2, 40.0, C.SPHERICAL)
+    assert gw.cfg.projective_sdf is False
+    with pytest.raises(ValueError, match="camera model"):
+        gw.setCamera(16.0, 8.0, 64.0, 8.0, 16, 128, 0.2, 40.0, 2)
     gw = GeoWrapper(**kw)
     gw.setCamera(50.0, 50.0, 39.5, 29.5, WROWS, WCOLS, 0.01, 5.0)
     gw.setCurrPose([0, 0, 0], [0, 0, 0, 1])
