@@ -30,7 +30,13 @@ Phases (any failure raises: non-zero exit, no result line):
                allocation candidates on the card equal to the CPU's as sets
                at full width (ROADMAP C14): phase 4's tile DDA on frames 0,
                1 and 100 and the point-centric voxel walk of one 64x1024
-               scan, 0 keys apart;
+               scan, 0 keys apart; the quality protocol's small box preset
+               (apps/quality_eval.py, 120x160, 12 frames) on both, metric
+               rows within 1e-4 and vertex counts equal; and a setter
+               sequence on phase 3's small RGB-D scene (3 frames,
+               setVirtualVoxelSize, 3 frames, setNumSdfBlocks and
+               setVoxelExtentsScale, 3 frames) on both, the maps within
+               the RGB-D bounds;
   4. RGB-D   — GeoWrapper(device="cuda") at replica.cfg's settings, 120
                frames of bench.py's box-room orbit (starvation fires on
                frame 100), with the kernels' launch counts taken over that
@@ -94,9 +100,31 @@ Phases (any failure raises: non-zero exit, no result line):
                blocks per scan, K2's launches (exactly 3: scans 10, 20, 30)
                and K3's, the blocks GC freed, and the mesh on the plane or
                the wall; the figures on one {"points": ...} line.
-After the runs no jax and no mrhash_tpu module may be loaded.  The last
-lines are the mesh and the point-centric figures' JSON lines, the kernels'
-JSON record (K1 and K3 with res1_* figures beside their res-0 ones, K3
+ 12. quality and the API — apps/quality_eval.py at the Replica preset
+               (1200x680, 1 cm, 7 cm truncation, 2^19 blocks, then
+               setHashNumBuckets(2^15)), 40 frames of the orbit, the host
+               sweep's extractMesh, the PLY read back and
+               eval_reconstruction's metrics against 2M GT points, each
+               phase's seconds on its own line: (a) the box room (Chamfer-
+               L1@5cm < 0.010 m, F@5cm > 0.99); (b) the cluttered room
+               with multi-resolution (threshold 1.0, min weight 2: K1 res-1
+               launches > 0, F@5cm >= 0.82, P@5cm >= 0.95) and the
+               recall-miss diagnosis; (c) the setters on the card:
+               setNFramesInvalidateVoxels(10) on phase 4's wrapper built
+               without starvation, after its first frame, then 30 frames
+               (K2 exactly 3 launches); setMaxNumSdfBlockIntegrateFrom-
+               GlobalHash and a rebuild (setNumSdfBlocks) while phase 9's
+               walk has a stream-out in flight, the grids equal to a run
+               that joined first, no thread left; (d) the memory report of
+               a GeoWrapper at the Replica preset, its device total equal
+               to the state's nbytes and to memory_allocated's growth
+               within 1 %, and the peak across setHashNumBuckets; the
+               figures on one {"quality": ...} line.
+After the runs no jax, no mrhash_tpu, no bench and no tools/quality_eval
+module may be loaded.  The last lines are the mesh, the point-centric and
+the quality figures' JSON lines, the kernels'
+JSON record (K1 and K3 with res1_* figures beside their res-0 ones, K1
+with phase 12's launches, K2 with the setter check's, K3
 also with the mixed window's one launch and the res-1 grid's empty-kernel
 floor, K2 with sph_* figures on the spherical readback and phase 11's
 launches, K4 with the warp-steps it walks and those its early exit
@@ -204,15 +232,15 @@ def room_depth(rot, trans, rng, rows=ROWS, cols=COLS, fx=FX, fy=FY, cx=CX,
     return np.clip(depth, 0.0, 29.0).astype(np.float32)
 
 
-def make_wrapper(device, multires=False, viewer=False):
+def make_wrapper(device, multires=False, viewer=False, starve=100):
     """The port's GeoWrapper at configurations/replica.cfg's settings, with
     bench.py's capacities; multires: tools/bench_extra.py::bench_multires's
     (sdf_var_threshold 1.0, 2^13 allocations per frame); viewer: with
-    viewer_active."""
+    viewer_active; starve: n_frames_invalidate_voxels (the cfg's 100)."""
     from mrhash_tpu_torch.geowrapper import GeoWrapper
     gw = GeoWrapper(sdf_truncation=0.07, sdf_truncation_scale=0.0,
                     integration_weight_sample=1, virtual_voxel_size=0.01,
-                    n_frames_invalidate_voxels=100, voxel_extents_scale=1,
+                    n_frames_invalidate_voxels=starve, voxel_extents_scale=1,
                     marching_cubes_threshold=1.5, min_weight_threshold=5,
                     min_depth=0.01, max_depth=30.0,
                     sdf_var_threshold=MR_THRESHOLD if multires else 0.0,
@@ -2385,6 +2413,324 @@ def run_device_mesh(cases, smi, cuda=True):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: quality and the API
+# ---------------------------------------------------------------------------
+
+Q_FRAMES, Q_POINTS = 40, 2_000_000   # the quality protocol's Replica preset
+Q_GATES = dict(box=dict(chamfer=0.010, fscore=0.99),
+               clutter=dict(fscore=0.82, precision=0.95))
+Q_STARVE = 10                        # (c): setNFramesInvalidateVoxels(10)
+
+
+def compare_small_quality():
+    """apps/quality_eval.py's small box preset (120x160, 5 cm voxels, 12
+    frames, extractMesh's host sweep) on the card and on the CPU, where
+    tests/test_torch_quality.py holds it against the JAX package: every
+    metric row within 1e-4 and the vertex counts equal."""
+    from mrhash_tpu_torch.apps import quality_eval as Q
+    rows, stats = {}, {}
+    for dev in ("cpu", "cuda"):
+        stats[dev] = {}
+        rows[dev] = Q.run_quality(frames=12, res="small",
+                                  n_eval_points=100_000, device=dev,
+                                  stats=stats[dev])
+    vc, vg = stats["cpu"]["vertices"], stats["cuda"]["vertices"]
+    assert vc == vg, (vc, vg)
+    err = max(abs(c[k] - g[k]) for c, g in zip(rows["cpu"], rows["cuda"])
+              for k in c)
+    r5 = rows["cuda"][0]
+    log(f"compare quality small box cuda vs cpu (120x160, 12 frames): "
+        f"{vg} vertices on both, Chamfer-L1@5cm {r5['chamfer_l1']:.5f}, "
+        f"F@5cm {r5['fscore']:.5f}, max |row diff| {err:.3g}")
+    assert err <= 1e-4, err
+    return dict(vertices=vg, max_row_diff=err, chamfer_l1=r5["chamfer_l1"],
+                fscore=r5["fscore"])
+
+
+def setter_scene(dev):
+    """Phase 3's setter sequence on `dev`: a GeoWrapper at phase 3's small
+    scene settings (64x256, 2 cm voxels, 2^11 blocks, starvation every 2
+    frames) takes 3 frames of the relief, setVirtualVoxelSize(0.03), 3
+    frames, setNumSdfBlocks(2^12), setVoxelExtentsScale(2) and
+    setNFramesInvalidateVoxels(0), 3 frames.  Returns the map in the host
+    layout after frame 5 and after frame 8, and each frame's stats.  With
+    voxel extents of 2 the block transform maps a point to a block of
+    twice the size (the JAX package's, ROADMAP C17), so no voxel of the
+    last frames' blocks is observed near the surface and GC would free
+    them all: starvation, and with it GC, is off for those frames."""
+    import numpy as np
+
+    from mrhash_tpu_torch.geowrapper import GeoWrapper
+    rows, cols = SMALL_CAM[4], SMALL_CAM[5]
+    gw = GeoWrapper(sdf_truncation=0.06, sdf_truncation_scale=0.0,
+                    integration_weight_sample=1, virtual_voxel_size=0.02,
+                    n_frames_invalidate_voxels=2, voxel_extents_scale=1,
+                    gs_optimization_param_path="", num_blocks=1 << 11,
+                    max_active_blocks=1 << 10, max_alloc_per_frame=1 << 10,
+                    profiling=False, device=dev)
+    gw.setCamera(*SMALL_CAM)
+    rng = np.random.default_rng(0)
+    r = np.arange(rows, dtype=np.float32)[:, None]
+    c = np.arange(cols, dtype=np.float32)[None, :]
+    base = 1.6 + 0.3 * np.sin(c / 37.0) + 0.2 * np.cos(r / 17.0)
+    rgb = rng.integers(0, 255, (rows, cols, 3)).astype(np.uint8)
+    maps, stats = [], []
+    for i in range(9):
+        if i == 3:
+            gw.setVirtualVoxelSize(0.03)
+        if i == 6:
+            maps.append(host_map(gw.state, gw.cfg))
+            gw.setNumSdfBlocks(1 << 12)
+            gw.setVoxelExtentsScale(2)
+            gw.setNFramesInvalidateVoxels(0)
+        gw.setCurrPose([0.03 * i, 0.01 * i, 0.0], [0.0, 0.0, 0.0, 1.0])
+        gw.setDepthImage((base + rng.normal(0, 0.01, base.shape)
+                          ).astype(np.float32))
+        gw.setRGBImage(rgb)
+        gw.compute()
+        stats.append(dict(gw.last_stats))
+    assert gw.state.frame == 3 and gw.cfg.num_blocks == 1 << 12
+    maps.append(host_map(gw.state, gw.cfg))
+    gw.close()
+    return maps, stats
+
+
+def compare_small_setters():
+    """The setter sequence on the card against the same on the CPU (where
+    tests/test_torch_api.py holds a rebuild against the JAX package): the
+    same stats after every frame; after frame 5 and after frame 8 the same
+    key set, weight and rgbp equal, sdf within 2e-5, sumsq within 5e-4,
+    over more than 10,000 weighted voxels."""
+    import numpy as np
+    (mc, sc), (mg, sg) = setter_scene("cpu"), setter_scene("cuda")
+    assert sc == sg, (sc, sg)
+    seen = []
+    for (pc, rc, c), (pg, rg, g) in zip(mc, mg):
+        assert np.array_equal(pc, pg), "block key sets differ"
+        assert np.array_equal(rc, rg)
+        assert np.array_equal(c["weight"], g["weight"])
+        upd = c["weight"] > 0
+        assert int(upd.sum()) > 10000, int(upd.sum())
+        assert np.array_equal(c["rgbp"][upd], g["rgbp"][upd])
+        err = {f: float(np.abs(c[f][upd] - g[f][upd]).max())
+               for f in ("sdf", "sumsq")}
+        seen.append((len(pc), int(upd.sum()), err))
+    log(f"compare setter sequence cuda vs cpu (64x256, 3 + 3 + 3 frames "
+        f"around setVirtualVoxelSize, setNumSdfBlocks, setVoxelExtentsScale "
+        f"and setNFramesInvalidateVoxels): the same stats on all 9 frames "
+        f"(window {[s['occupied_blocks'] for s in sg]}); after frames 5 and "
+        f"8 (blocks, weighted voxels, max |diff|): {seen}")
+    assert all(e[f] <= TOL[f] for *_, e in seen for f in e), seen
+
+
+def quality_run(scene, multires, smi):
+    """Phase 12 (a) or (b): apps/quality_eval.run_quality at the Replica
+    preset on the card (40 frames, extractMesh's host sweep, 2M GT
+    points), with K1's and K2's launches over the frames, extractMesh and
+    the eval, and the peak device memory.  Returns its record."""
+    import torch
+
+    from mrhash_tpu_torch.apps import quality_eval as Q
+    from mrhash_tpu_torch.ops import fused_integrate as FI
+    from mrhash_tpu_torch.ops import sample_image as SI
+    tag = f"quality {scene}{' multi-res' if multires else ''}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    FI.launch_count = FI.res1_launch_count = SI.launch_count = 0
+    rows = Q.run_quality(frames=Q_FRAMES, res="replica",
+                         n_eval_points=Q_POINTS, scene=scene,
+                         multires=multires, device="cuda", stats=stats)
+    launches = {"fused_integrate_rows": FI.launch_count,
+                "fused_integrate_rows_res1": FI.res1_launch_count,
+                "sample_image": SI.launch_count}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    r5 = next(r for r in rows if r["threshold"] == 0.05)
+    for what, key in (("frames", "frames_s"), ("scene (host)", "scene_s"),
+                      ("mesh (extractMesh, host sweep)", "mesh_s"),
+                      ("PLY read", "read_s"), ("eval", "eval_s")):
+        log(f"{tag}: {what} {stats[key]:.2f} s [{smi}]")
+    log(f"{tag}: {stats['vertices']} vertices, {stats['faces']} faces, "
+        f"{stats['gt_points']} GT points observed, occupied "
+        f"{stats['occupied']} blocks in the last window, launches "
+        f"{launches}, peak {peak:.3f} GiB [{smi}]")
+    log(f"{tag}: @5cm Chamfer-L1 {r5['chamfer_l1']:.5f} m, accuracy "
+        f"{r5['accuracy_mae']:.5f}, completeness {r5['completeness_mae']:.5f}"
+        f", P {r5['precision']:.5f}, R {r5['recall']:.5f}, F "
+        f"{r5['fscore']:.5f} [{smi}]")
+    assert launches["fused_integrate_rows"] >= 1, launches
+    assert launches["sample_image"] == 0, launches
+    gates = Q_GATES[scene]
+    if scene == "box":
+        assert launches["fused_integrate_rows"] == Q_FRAMES, launches
+        assert launches["fused_integrate_rows_res1"] == 0, launches
+        assert r5["chamfer_l1"] < gates["chamfer"], r5
+        assert r5["fscore"] > gates["fscore"], r5
+    else:
+        diag = stats["recall_miss_diag"]
+        log(f"{tag}: recall misses {diag} [{smi}]")
+        assert launches["fused_integrate_rows_res1"] > 0, launches
+        assert diag["res1_blocks"] > 0, diag
+        assert r5["fscore"] >= gates["fscore"], r5
+        assert r5["precision"] >= gates["precision"], r5
+    return dict(metrics_5cm=r5, launches=launches, peak_gib=peak, **stats)
+
+
+def run_starve_setter(depths, rgb, smi):
+    """Phase 12 (c), first half: phase 4's wrapper built with
+    n_frames_invalidate_voxels=0 takes one frame, then
+    setNFramesInvalidateVoxels(Q_STARVE) and 30 frames of phase 4's orbit
+    (frames 1-30): starvation fires on frames 10, 20 and 30, so K2
+    launches exactly 3 times over those 30 frames."""
+    import torch
+
+    from mrhash_tpu_torch.ops import fused_integrate as FI
+    from mrhash_tpu_torch.ops import sample_image as SI
+    gw = make_wrapper("cuda", starve=0)
+    feed(gw, 0, depths, rgb)
+    gw.setNFramesInvalidateVoxels(Q_STARVE)
+    torch.cuda.synchronize()
+    FI.launch_count = FI.res1_launch_count = SI.launch_count = 0
+    for i in range(1, 31):
+        feed(gw, i, depths, rgb)
+    torch.cuda.synchronize()
+    launches = {"fused_integrate_rows": FI.launch_count,
+                "sample_image": SI.launch_count}
+    gw.close()
+    log(f"setters: setNFramesInvalidateVoxels({Q_STARVE}) after frame 0, "
+        f"30 more frames: launches {launches} [{smi}]")
+    assert launches == {"fused_integrate_rows": 30, "sample_image": 3}, \
+        launches
+    return launches
+
+
+def setter_walk(depths, rgb, at=None):
+    """Phase 12 (c), second half: phase 9's walk until a stream-out is
+    issued whose job is still in flight when compute() returns, then
+    setMaxNumSdfBlockIntegrateFromGlobalHash (the old Streamer's grid
+    handed over); on until the next such stream-out, then a rebuild
+    (setNumSdfBlocks).  With `at` (the frame counts of such a run) the
+    walk stops at those frames and joins the stream-out before each call:
+    the run to compare with.  Returns the grid's blocks after each call,
+    whether the job was in flight at it, and the frame counts."""
+    import torch
+    gw = make_walk_wrapper("cuda")
+    grids, busy, frames, i = [], [], [], 0
+    for step in range(2):
+        while True:
+            assert i < 1000, "no stream-out in flight within 1000 frames"
+            n_ev = len(gw.streamer.out_events)
+            walk_frame(gw, W_STEP * i, i, depths, rgb)
+            i += 1
+            event = (len(gw.streamer.out_events) > n_ev
+                     and gw.streamer.out_events[-1]["blocks"] > 0)
+            if at is not None:
+                if i == at[step]:
+                    break
+            elif event and gw.streamer.busy():
+                break
+        busy.append(gw.streamer.busy())
+        frames.append(i)
+        if at is not None:
+            gw.streamer.join()
+        old = gw.streamer
+        if step == 0:
+            gw.setMaxNumSdfBlockIntegrateFromGlobalHash(old.staging)
+            assert gw.streamer.grid is old.grid
+        else:
+            gw.setNumSdfBlocks(gw.cfg.num_blocks)
+            assert gw.streamer.grid.num_blocks() == 0
+        torch.cuda.synchronize()    # a CUDA error of the copy shows here
+        grids.append(host_grid(old.grid.chunks))
+    gw.close()
+    return grids, busy, frames
+
+
+def run_rebuild_in_flight(smi):
+    """Phase 12 (c), second half: the walk with the setters called while
+    a stream-out is in flight, against the walk that joined first at the
+    same frames: the same grid content after each call, no CUDA error,
+    and no thread left once both wrappers are closed."""
+    import threading
+
+    import numpy as np
+    threads = threading.active_count()
+    depths = walk_depths()
+    rgb = np.random.default_rng(1).integers(0, 255, (ROWS, COLS, 3)
+                                            ).astype(np.uint8)
+    t0 = time.perf_counter()
+    ga, busy, frames = setter_walk(depths, rgb)
+    gb, _, frames_b = setter_walk(depths, rgb, frames)
+    assert frames == frames_b, (frames, frames_b)
+    for a, b in zip(ga, gb):
+        for k in ("pos", "res", "w", "rgb", "sdf", "ssq"):
+            assert np.array_equal(a[k], b[k]), k
+    left = threading.active_count() - threads
+    log(f"setters: the walk's stream-out in flight ({busy}) at "
+        f"setMaxNumSdfBlockIntegrateFromGlobalHash and at setNumSdfBlocks "
+        f"(after frames {frames}): grids of {[len(g['pos']) for g in ga]} "
+        f"blocks equal to the run that joined first, threads left {left}, "
+        f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    assert all(busy), busy
+    assert left == 0, left
+    return dict(frames=frames, grid_blocks=[len(g["pos"]) for g in ga],
+                in_flight=busy, threads_left=left)
+
+
+def run_memory_report(smi):
+    """Phase 12 (d): a GeoWrapper at the Replica preset (2^19 blocks)
+    built in a temporary directory: its memory report's device total
+    equals the state's tensors' nbytes, and torch.cuda.memory_allocated()
+    rises by that within 1 %; then setHashNumBuckets(2^15), whose peak
+    must stay near one state (the old one is released first)."""
+    import torch
+
+    from mrhash_tpu_torch.apps import quality_eval as Q
+    from mrhash_tpu_torch.geowrapper import GeoWrapper
+    rows, cols, fx, vvs, trunc, num_blocks = Q.PRESETS["replica"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        gw = GeoWrapper(sdf_truncation=trunc, sdf_truncation_scale=0.0,
+                        integration_weight_sample=1, virtual_voxel_size=vvs,
+                        n_frames_invalidate_voxels=0, voxel_extents_scale=1,
+                        gs_optimization_param_path="", num_blocks=num_blocks,
+                        profiling=False, device="cuda")
+        with open("memory_allocation.txt") as f:
+            report = f.read().splitlines()
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - base
+    st = gw.state
+    tensors = [st.table.pos, st.table.ptr, st.table.res, st.table.fp,
+               st.table.heap_high, st.table.heap_low,
+               *(getattr(st.pool, f) for f in st.pool.FIELDS)]
+    nbytes = sum(t.nbytes for t in tensors)
+    del st, tensors     # the rebuild must be free to release the old state
+    total = int(next(line for line in report if line.startswith(
+        "VoxelContainer | total d_size: ")).split()[4])
+    torch.cuda.reset_peak_memory_stats()
+    gw.setHashNumBuckets(1 << 15)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    after = torch.cuda.memory_allocated() - base
+    gw.close()
+    del gw
+    torch.cuda.empty_cache()
+    for line in report:
+        log("memory report: " + line)
+    log(f"memory: report {total} B, state nbytes {nbytes} B, "
+        f"memory_allocated grew {grown} B ({grown / nbytes - 1:+.4%}); "
+        f"setHashNumBuckets(2^15): peak {peak} B over the start, {after} B "
+        f"after [{smi}]")
+    assert total == nbytes, (total, nbytes)
+    assert abs(grown - nbytes) <= 0.01 * nbytes, (grown, nbytes)
+    assert peak <= 1.01 * grown, (peak, grown)
+    return dict(report_bytes=total, nbytes=nbytes, allocated_growth=grown,
+                rebuild_peak=peak, after_rebuild=after)
+
+
 def main():
     t_main = time.perf_counter()
     import torch
@@ -2434,6 +2780,8 @@ def main():
     small_points = compare_small_points()
     compare_small_gs()
     compare_small_walk()
+    small_quality = compare_small_quality()
+    compare_small_setters()
     compare_qtree(train[0]["rgb"])
     k1, k2, k6 = compare_kernels(depths, rgb)
     torch.cuda.empty_cache()
@@ -2561,8 +2909,24 @@ def main():
             f"{r['peak_gib']:.3f} GiB, K2/K3 launches {p_launches[name]} "
             f"[{smi}]")
 
+    # 12. quality and the API: the box and the cluttered room at the
+    # Replica preset through extractMesh and eval_reconstruction's
+    # metrics, the setters on the card, the memory report
+    quality = {"small": small_quality}
+    q_launches = {}
+    for name, scene, multires in (("box", "box", False),
+                                  ("clutter", "clutter", True)):
+        quality[name] = quality_run(scene, multires, smi)
+        q_launches[name] = quality[name]["launches"]
+        torch.cuda.empty_cache()
+    starve_launches = run_starve_setter(depths, rgb, smi)
+    quality["rebuild_in_flight"] = run_rebuild_in_flight(smi)
+    torch.cuda.empty_cache()
+    quality["memory"] = run_memory_report(smi)
+
     loaded = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib", "mrhash_tpu"))
+                    if m.split(".")[0] in ("jax", "jaxlib", "mrhash_tpu",
+                                           "bench", "quality_eval"))
     assert not loaded, f"the port loaded {loaded}"
 
     # K1 and K3 carry their res-1 paths' figures beside the res-0 ones:
@@ -2614,9 +2978,15 @@ def main():
                 "one launch serves both resolutions: a multi-res scan's "
                 "launch counts in multires_launches (res 0) and "
                 "res1_launches (res 1) alike")
+        if name == "fused_integrate_rows":   # phase 12's rooms
+            entry["quality_launches"] = {
+                k: {p: v[p] for p in ("fused_integrate_rows",
+                                      "fused_integrate_rows_res1")}
+                for k, v in q_launches.items()}
         if name == "sample_image":     # phase 11's spherical readback
             entry["points_launches"] = {
                 k: v["sample_image"] for k, v in p_launches.items()}
+            entry["setter_launches"] = starve_launches["sample_image"]
             entry.update({"sph_" + k: k2s[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")})
@@ -2634,6 +3004,7 @@ def main():
         viewer=vrun, rgbd_fps=run["fps"], **meshes)}))
     print(json.dumps({"points": dict(card=smi, c14=c14,
                                      small=small_points, **prun)}))
+    print(json.dumps({"quality": dict(card=smi, **quality)}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

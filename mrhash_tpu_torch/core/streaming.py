@@ -24,6 +24,7 @@ a slow remote link: here the four voxel fields go to pinned host buffers on
 a side CUDA stream (PORT_NOTES.md P34-P36).  Its `collect_evicted` has no
 caller and is not ported.  `insert_readonly` stages host blocks into the
 device map for the device mesh sweep without taking them from the grid.
+`close` joins the worker's job and stops the worker.
 """
 from __future__ import annotations
 
@@ -299,6 +300,18 @@ class Streamer:
     def busy(self) -> bool:
         """True while an asynchronous stream-out job is in flight."""
         return self._job is not None and not self._job.done()
+
+    def close(self):
+        """Join the job in flight (re-raising its error) and shut the
+        worker thread down (mrhash_tpu's Streamer.close).  The Streamer
+        stays usable: a later asynchronous stream-out starts a new
+        worker."""
+        try:
+            self.join()
+        finally:
+            if self._worker is not None:
+                self._worker.shutdown(wait=True)
+                self._worker = None
 
     # -- out ----------------------------------------------------------------
     def _ingest(self, passes, stats, grid):

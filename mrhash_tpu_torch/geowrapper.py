@@ -20,7 +20,10 @@ sweep (native/), or with MRHASH_HOST_MESH=0 the device sweep
 kernel K3's projective update, or with projective_sdf=False the
 point-centric walk with the point-to-plane SDF over the cloud's normals;
 n_frames_invalidate_voxels > 0 starves and garbage-collects the map on
-both paths and under both camera models.
+both paths and under both camera models.  The constructor writes the
+memory report (memory_allocation.txt in the working directory); the 13
+setters resize or reconfigure the map as the reference's do, and close()
+stops the viewer's and the Streamer's workers.
 """
 from __future__ import annotations
 
@@ -116,7 +119,7 @@ class GeoWrapper:
         self._viewer_future = None
         self._viewer_pool = (concurrent.futures.ThreadPoolExecutor(1)
                              if self.viewer_active else None)
-        free = _device_free_bytes(self.device)
+        free = self._free_bytes = _device_free_bytes(self.device)
         if gs_optimization_param_path:
             free = int(free * P.GS_SCALING_RATIO)
         to_alloc = free * P.SDF_BLOCKS_RATIO
@@ -174,6 +177,76 @@ class GeoWrapper:
         self.integration_profiler = Profiler("integration_profiler",
                                              profiling)
         self.streaming_profiler = Profiler("streamer_profiler", profiling)
+        self._write_memory_report()
+
+    # ------------------------------------------------------------------ config
+    def _write_memory_report(self, path="memory_allocation.txt"):
+        """The memory report of mrhash_tpu's GeoWrapper (calculateMemoryUsage
+        of the container, voxel_data_structures.cpp:9-55, and of the
+        streamer, streamer.cpp:449-491), written to `path` (the working
+        directory by default) at the end of the constructor.  The
+        parameter block is the reference's line for line.  The sizes are
+        the port's own buffers (PORT_NOTES.md P58): the MapState tensors'
+        nbytes on the device, which holds no compact window and no heap
+        counters; the budget those sizes came from (torch.cuda.mem_get_info
+        on a card); the transient buffers of one stream-out pass.  The
+        host grid is new and empty when the report is written, so its
+        lines are 0, as in the reference."""
+        cfg = self.cfg
+        t, pool = self.state.table, self.state.pool
+        mb = 1e-6
+        sz_hash = sum(x.nbytes for x in (t.pos, t.ptr, t.res, t.fp))
+        sz_heap = t.heap_high.nbytes + t.heap_low.nbytes
+        sz_pool = sum(getattr(pool, f).nbytes for f in VoxelPool.FIELDS)
+        tot_d = sz_hash + sz_heap + sz_pool
+        s = self.streamer.staging
+        # one pass: pos 3xi32 + res + 4 payload lanes * 512 per block, once
+        # gathered on the device and once in pinned host memory
+        sz_pass = s * (4 * 4 + P.TOTAL_SDF_BLOCK_SIZE * 4 * 4)
+        try:
+            with open(path, "w") as f:
+                f.write("VoxelContainer | running with following parameters:"
+                        f"\nnum_sdf_blocks: {cfg.num_blocks}"
+                        f"\nhash_num_buckets: {t.num_buckets}"
+                        f"\nhash_bucket_size: {P.HASH_BUCKET_SIZE}"
+                        f"\nlinked_list_size: {P.LINKED_LIST_SIZE}"
+                        f"\nmax_integration_distance: "
+                        f"{cfg.max_integration_distance}"
+                        f"\nsdf_truncation: {cfg.sdf_truncation}"
+                        f"\nsdf_truncation_scale: {cfg.sdf_truncation_scale}"
+                        f"\nintegration_weight_sample: "
+                        f"{cfg.integration_weight_sample}"
+                        f"\nintegration_weight_max: "
+                        f"{cfg.integration_weight_max}"
+                        f"\ntotal_size: {t.capacity}"
+                        f"\nvoxel_block_volume: {P.TOTAL_SDF_BLOCK_SIZE}\n")
+                f.write("=========================================="
+                        "===============\n")
+                f.write("VoxelContainer | structs - voxel lanes: 16 B "
+                        "(sdf f32, sum_squared f32, weight i32, rgb packed "
+                        "i32) | hash slot: 24 B (pos 3xi32, ptr, res, fp)\n")
+                f.write(f"VoxelContainer | size_d_hashTable : "
+                        f"{sz_hash * mb} MB\n")
+                f.write(f"VoxelContainer | size_d_heap : {sz_heap * mb} MB\n")
+                f.write(f"VoxelContainer | size_d_SDFBlocks : "
+                        f"{sz_pool * mb} MB\n")
+                f.write(f"VoxelContainer | total d_size: {tot_d} B || "
+                        f"{tot_d * mb} MB\n")
+                f.write(f"VoxelContainer | {self.device.type} free at "
+                        f"construction: {self._free_bytes} B\n")
+                f.write("=========================================="
+                        "===============\n")
+                f.write(f"Streamer | staging blocks: {s}\n")
+                f.write(f"Streamer | size_d_pass (transient, and as much "
+                        f"pinned host memory) : {sz_pass * mb} MB\n")
+                f.write("Streamer | host chunks: 0, host blocks: 0\n")
+                f.write("Streamer | size_h_grid : 0.0 MB\n")
+                f.write(f"Streamer | total h_size: {sz_pass} B || "
+                        f"{sz_pass * mb} MB\n")
+                f.write("=========================================="
+                        "===============\n")
+        except OSError:
+            pass
 
     # ------------------------------------------------------------------ inputs
     def setCamera(self, fx, fy, cx, cy, rows, cols, min_depth, max_depth,
@@ -377,15 +450,16 @@ class GeoWrapper:
         return self.viewer_mesh
 
     def close(self):
-        """Wait for the viewer's tick in flight and stop its worker, and
-        wait for an asynchronous stream-out (re-raising their errors)."""
+        """Wait for the viewer's tick in flight and stop its worker, then
+        join an asynchronous stream-out and stop the Streamer's worker
+        (re-raising their errors)."""
         if self._viewer_pool is not None:
             try:
                 self.getViewerMesh()
             finally:
                 self._viewer_pool.shutdown(wait=True)
                 self._viewer_pool = None
-        self.streamer.join()
+        self.streamer.close()
 
     def extractMesh(self, filename: str):
         """extractMesh + ASCII PLY.  By default the host-native sweep
@@ -617,3 +691,82 @@ class GeoWrapper:
 
     def getColors(self):
         return self.mesh.colors
+
+    # ------------------------------------------------------------------ setters
+    # The size setters rebuild the map state and the Streamer on the
+    # wrapper's device (the reference mutates the same fields before first
+    # use); the rebuilt map starts empty, as the reference's does.
+    def _rebuild(self, **cfg_updates):
+        """mrhash_tpu's _rebuild, in another order: the new config first
+        (a bad value raises before anything is torn down), then the viewer's
+        tick and the Streamer are joined and closed (an asynchronous
+        stream-out still copies from the old pool), the old state is
+        released, and only then is the new one made: at the Replica preset
+        the pool is ~4.3 GB, and making the new state first would hold
+        both.  The new Streamer keeps the old staging size; the old host
+        grid, of another voxel size or chunk extent, is not carried."""
+        cfg = dataclasses.replace(self.cfg, **cfg_updates)
+        self.getViewerMesh()
+        staging = self.streamer.staging
+        self.streamer.close()
+        self.state = None
+        self.cfg = cfg
+        self.state = make_state(cfg.num_blocks, cfg.num_buckets or None,
+                                self.device)
+        self.streamer = Streamer(cfg, staging)
+        self._high_free = cfg.num_blocks
+        self.last_stats = None
+
+    def setNumSdfBlocks(self, n):
+        self._rebuild(num_blocks=int(n))
+
+    def setHashNumBuckets(self, n):
+        self._rebuild(num_buckets=int(n))
+
+    def setHashBucketSize(self, n):
+        if int(n) != P.HASH_BUCKET_SIZE:
+            raise ValueError("hash bucket size is compile-time (params.py)")
+
+    def setSdfTruncation(self, v):
+        self.cfg = dataclasses.replace(self.cfg, sdf_truncation=float(v))
+
+    def setSdfTruncationScale(self, v):
+        self.cfg = dataclasses.replace(self.cfg,
+                                       sdf_truncation_scale=float(v))
+
+    def setIntegrationWeightSample(self, v):
+        self.cfg = dataclasses.replace(self.cfg,
+                                       integration_weight_sample=int(v))
+
+    def setIntegrationWeightMax(self, v):
+        """The reference's clamp to 255, before MapConfig, which rejects a
+        larger cap (PORT_NOTES.md P35)."""
+        if int(v) > 255:
+            print("GeoWrapper::setIntegrationWeightMax | clamping "
+                  f"{int(v)} to 255 (weight is uint8 on the wire)")
+        self.cfg = dataclasses.replace(
+            self.cfg, integration_weight_max=min(int(v), 255))
+
+    def setVirtualVoxelSize(self, v):
+        self._rebuild(virtual_voxel_size=float(v))
+
+    def setLinkedListSize(self, v):
+        if int(v) != P.LINKED_LIST_SIZE:
+            raise ValueError("linked list size is compile-time (params.py)")
+
+    def setNFramesInvalidateVoxels(self, v):
+        self.cfg = dataclasses.replace(self.cfg,
+                                       n_frames_invalidate_voxels=int(v))
+
+    def setMaxNumSdfBlockIntegrateFromGlobalHash(self, v):
+        """A Streamer of staging size v.  The old one is closed and hands
+        its host chunk grid to the new one, so the blocks already streamed
+        out stay in the map; the reference drops both its workers and the
+        grid (ROADMAP C15, PORT_NOTES.md P59)."""
+        old = self.streamer
+        old.close()
+        self.streamer = Streamer(self.cfg, int(v))
+        self.streamer.grid = old.grid
+
+    def setVoxelExtentsScale(self, v):
+        self._rebuild(voxel_extents=(float(v),) * 3)
