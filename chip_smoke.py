@@ -120,10 +120,31 @@ Phases (any failure raises: non-zero exit, no result line):
                to the state's nbytes and to memory_allocated's growth
                within 1 %, and the peak across setHashNumBuckets; the
                figures on one {"quality": ...} line.
+ 13. sharding — mrhash_tpu_torch/parallel's sharded steps, one process per
+               rank through parallel/launch.py::run_ranks (the parent frees
+               its cached device memory first): two ranks sharing the card
+               over gloo, then one rank over NCCL.  (a) card = CPU: phase
+               3's small multi-res RGB-D scene (starving every 2 frames)
+               and its small LiDAR scene (starving every 2 scans), each
+               sharded on the card and on the CPU, each rank's two maps
+               equal by key (the RGB-D bounds; LiDAR: P15's flip bound);
+               (b) RGB-D at phase 7's settings, 40 frames of the orbit
+               starving every 20 frames: at n = 1 the map after frame 19
+               equal to the single-process pipeline's; (c) LiDAR at phase
+               8's settings, 40 scans starving every 10.  At each n: every
+               key on its owner and on no other rank, occupied + free = the
+               local capacity, K1 res-0 and res-1 (b) or K3's two paths (c)
+               launched on every rank, K2 exactly once (b) or 3 times (c)
+               per rank, extract_mesh_sharded's mesh on the walls (b) or
+               on the ground or the wall (c) at > 95 %; frames/s over
+               frames 10-39, the collectives' ms per frame, peak memory per
+               rank, the launches, the key overlap of n = 2 with n = 1; the
+               figures on one {"sharding": ...} line.
 After the runs no jax, no mrhash_tpu, no bench and no tools/quality_eval
-module may be loaded.  The last lines are the mesh, the point-centric and
-the quality figures' JSON lines, the kernels'
-JSON record (K1 and K3 with res1_* figures beside their res-0 ones, K1
+module may be loaded.  The last lines are the mesh, the point-centric,
+the quality and the sharding figures' JSON lines, the kernels'
+JSON record (K1 and K3 with res1_* figures beside their res-0 ones, K1,
+K2 and K3 with phase 13's launches per run and rank, K1
 with phase 12's launches, K2 with the setter check's, K3
 also with the mixed window's one launch and the res-1 grid's empty-kernel
 floor, K2 with sph_* figures on the spherical readback and phase 11's
@@ -622,17 +643,14 @@ def host_map(st, cfg):
 SMALL_CAM = (80.0, 80.0, 127.5, 31.5, 64, 256, 0.01, 5.0)
 
 
-def small_scene(dev, multires=False):
-    """Phase 3's small scene on `dev`: 4 frames of a 64x256 relief with
-    starvation + GC through core/pipeline (multires: coarsening from frame
-    1 on, the threshold of tests/test_torch_multires.py).  Returns (cfg,
-    state, the first frame's camera)."""
+def small_inputs(multires=False):
+    """Phase 3's small scene: 4 frames of a 64x256 relief with starvation
+    every 2 frames + GC (multires: coarsening from frame 1 on, the
+    threshold of tests/test_torch_multires.py).  Returns (cfg, [(depth,
+    translation)], rgb)."""
     import numpy as np
-    import torch
 
-    from mrhash_tpu_torch.core import pipeline
-    from mrhash_tpu_torch.core.state import MapConfig, make_state
-    from mrhash_tpu_torch.ops import camera as C
+    from mrhash_tpu_torch.core.state import MapConfig
 
     rows, cols = SMALL_CAM[4], SMALL_CAM[5]
     cfg = MapConfig(virtual_voxel_size=0.02, sdf_truncation=0.06,
@@ -648,6 +666,20 @@ def small_scene(dev, multires=False):
     frames = [((base + rng.normal(0, 0.01, base.shape)).astype(np.float32),
                np.array([0.03 * i, 0.01 * i, 0.0], np.float32))
               for i in range(4)]
+    return cfg, frames, rgb
+
+
+def small_scene(dev, multires=False):
+    """Phase 3's small scene (small_inputs) on `dev` through
+    core/pipeline.  Returns (cfg, state, the first frame's camera)."""
+    import numpy as np
+    import torch
+
+    from mrhash_tpu_torch.core import pipeline
+    from mrhash_tpu_torch.core.state import make_state
+    from mrhash_tpu_torch.ops import camera as C
+
+    cfg, frames, rgb = small_inputs(multires)
     st = make_state(cfg.num_blocks, device=dev)
     cam0 = C.make_camera(*SMALL_CAM, device=dev)
     for d, t in frames:
@@ -878,6 +910,30 @@ def compare_lidar_kernel(clouds, multires=False):
     return rec
 
 
+def small_lidar_inputs(n_starve=0):
+    """Phase 3's small LiDAR scene: 3 scans of a 16x128 sensor (beams half
+    a column off the raster edges, 12 m wall) moving 0.4 m per scan,
+    starving every n_starve scans.  Returns (cfg, poses, scans, make_camera's
+    arguments)."""
+    import numpy as np
+
+    from mrhash_tpu_torch.core.state import MapConfig
+    from mrhash_tpu_torch.ops import camera as C
+
+    rows, cols = 16, 128
+    cfg = MapConfig(virtual_voxel_size=0.20, sdf_truncation=0.40,
+                    max_integration_distance=40.0, num_blocks=1 << 12,
+                    num_buckets=1 << 11, max_active_blocks=1 << 11,
+                    max_alloc_per_frame=1 << 11,
+                    n_frames_invalidate_voxels=n_starve)
+    rng = np.random.default_rng(0)
+    poses = [np.array([0.4 * i, 0.0, 0.0], np.float32) for i in range(3)]
+    scans = [lidar_cloud(t, rng, rows, cols, 12.0, np.pi / cols)
+             for t in poses]
+    return cfg, poses, scans, (cols / (2 * np.pi), rows / 0.65, cols / 2,
+                               rows / 2, rows, cols, 0.2, 40.0, C.SPHERICAL)
+
+
 def compare_small_lidar():
     """The whole LiDAR slice on the card against the slice on the CPU
     (where the tests hold it against the JAX reference): 3 scans of a 16x128
@@ -889,24 +945,14 @@ def compare_small_lidar():
     import torch
 
     from mrhash_tpu_torch.core import pipeline
-    from mrhash_tpu_torch.core.state import MapConfig, make_state
+    from mrhash_tpu_torch.core.state import make_state
     from mrhash_tpu_torch.ops import camera as C
 
-    rows, cols = 16, 128
-    cfg = MapConfig(virtual_voxel_size=0.20, sdf_truncation=0.40,
-                    max_integration_distance=40.0, num_blocks=1 << 12,
-                    num_buckets=1 << 11, max_active_blocks=1 << 11,
-                    max_alloc_per_frame=1 << 11)
-    rng = np.random.default_rng(0)
-    poses = [np.array([0.4 * i, 0.0, 0.0], np.float32) for i in range(3)]
-    scans = [lidar_cloud(t, rng, rows, cols, 12.0, np.pi / cols)
-             for t in poses]
+    cfg, poses, scans, cam_args = small_lidar_inputs()
     maps = {}
     for dev in ("cpu", "cuda"):
         st = make_state(cfg.num_blocks, cfg.num_buckets, dev)
-        cam0 = C.make_camera(cols / (2 * np.pi), rows / 0.65, cols / 2,
-                             rows / 2, rows, cols, 0.2, 40.0, C.SPHERICAL,
-                             device=dev)
+        cam0 = C.make_camera(*cam_args, device=dev)
         for t, pts in zip(poses, scans):
             cam = C.with_pose(cam0, np.eye(3, dtype=np.float32), t)
             st, _ = pipeline.integrate_points(cfg, st, cam,
@@ -2731,6 +2777,371 @@ def run_memory_report(smi):
                 rebuild_peak=peak, after_rebuild=after)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the sharded steps (mrhash_tpu_torch/parallel), one process per
+# rank through the port's launcher
+# ---------------------------------------------------------------------------
+
+S_FRAMES = 40                   # frames (scans) per full-width run
+S_STARVE, S_L_STARVE = 20, 10   # starve periods: K2 once / three times
+S_TIMEOUT = 300                 # the launcher's deadline per call, seconds
+S_TIMED = 10                    # frames/s over frames 10-39
+
+
+def map_by_key(st):
+    """A map's blocks sorted by key, on its device: (key codes i64[K], res
+    i32[K], {field: [K,512]} in the host layout, a res-1 block's voxels at
+    lanes [0, 64) and zeros beyond)."""
+    import torch
+
+    from mrhash_tpu_torch.core.streaming import gather_blocks
+    t = st.table
+    slots = torch.nonzero(t.ptr != -2).flatten()
+    code = key_codes(t.pos[slots])
+    order = torch.argsort(code)
+    s = slots[order]
+    fields = gather_blocks(st.pool, t.ptr[s], t.res[s])
+    return code[order], t.res[s], dict(zip(("sdf", "sumsq", "weight",
+                                            "rgbp"), fields))
+
+
+def key_codes(pos):
+    """One int64 per block key (each coordinate offset by 2^20, 21 bits)."""
+    import torch
+    p = pos.to(torch.int64) + (1 << 20)
+    return (p[:, 0] << 42) | (p[:, 1] << 21) | p[:, 2]
+
+
+def compare_maps(a, b, lidar=False):
+    """Two map_by_key maps: keys and resolutions equal; RGB-D: weight and
+    rgbp exact, sdf within 2e-5 and sumsq within 5e-4 where weighted;
+    lidar: P15's bound, weight flips plus sdf differences beyond 2e-3
+    within max(16, 1e-4 lanes).  Returns (blocks, weighted voxels,
+    figures)."""
+    import torch
+    ka, ra, fa = a
+    kb, rb = (t.to(ka.device) for t in b[:2])
+    fb = {f: v.to(ka.device) for f, v in b[2].items()}
+    assert torch.equal(ka, kb), (ka.numel(), kb.numel())
+    assert torch.equal(ra, rb), "block resolutions differ"
+    upd = fa["weight"] > 0
+    n_w = int(upd.sum())
+    if lidar:
+        flips = int((fa["weight"] != fb["weight"]).sum())
+        both = upd & (fb["weight"] > 0)
+        far = int(((fa["sdf"] - fb["sdf"]).abs() > 2e-3)[both].sum())
+        bound_n = max(16, int(fa["weight"].numel() * 1e-4))
+        assert flips + far <= bound_n, (flips, far, bound_n)
+        return ka.numel(), n_w, dict(flips=flips, sdf_far=far)
+    assert torch.equal(fa["weight"], fb["weight"]), "weights differ"
+    assert torch.equal(fa["rgbp"][upd], fb["rgbp"][upd]), "colours differ"
+    err = {f: float((fa[f] - fb[f]).abs()[upd].max()) if n_w else 0.0
+           for f in ("sdf", "sumsq")}
+    assert all(err[f] <= TOL[f] for f in err), err
+    return ka.numel(), n_w, err
+
+
+def shard_small(group):
+    """(a) card = CPU: phase 3's small multi-res RGB-D scene (starving every
+    2 frames) and its small LiDAR scene (starving every 2 scans), each
+    sharded on this rank's card and on the CPU; this rank's two maps
+    compared by key."""
+    import numpy as np
+    import torch
+
+    from mrhash_tpu_torch.ops import camera as C
+    from mrhash_tpu_torch.parallel import sharding as S
+
+    eye = np.eye(3, dtype=np.float32)
+    out = {}
+    cfg, frames, rgb = small_inputs(multires=True)
+    maps = []
+    for dev in (group.device, torch.device("cpu")):
+        st = S.make_sharded_state(cfg, group.rank, group.size, dev)
+        step = S.sharded_integrate_rgbd(cfg, group)
+        cam0 = C.make_camera(*SMALL_CAM, device=dev)
+        for d, t in frames:
+            st, _ = step(st, C.with_pose(cam0, eye, t),
+                         torch.from_numpy(d).to(dev),
+                         torch.from_numpy(rgb).to(dev))
+        maps.append(map_by_key(st))
+    n, n_w, err = compare_maps(maps[1], maps[0])
+    n1 = int(maps[1][1].sum())
+    out["rgbd"] = dict(blocks=n, res1=n1, weighted=n_w, **err)
+
+    cfg, poses, scans, cam_args = small_lidar_inputs(n_starve=2)
+    maps = []
+    for dev in (group.device, torch.device("cpu")):
+        st = S.make_sharded_state(cfg, group.rank, group.size, dev)
+        step = S.sharded_integrate_points(cfg, group)
+        cam0 = C.make_camera(*cam_args, device=dev)
+        for t, pts in zip(poses, scans):
+            st, _ = step(st, C.with_pose(cam0, eye, t),
+                         torch.from_numpy(pts).to(dev))
+        maps.append(map_by_key(st))
+    n, n_w, figs = compare_maps(maps[1], maps[0], lidar=True)
+    out["lidar"] = dict(blocks=n, weighted=n_w, **figs)
+    return out
+
+
+def rgbd_config():
+    """make_wrapper("cuda", multires=True)'s MapConfig (phase 7), starving
+    every S_STARVE frames."""
+    from mrhash_tpu_torch.core.state import MapConfig
+    return MapConfig(alloc_tile=4, virtual_voxel_size=0.01,
+                     sdf_truncation=0.07, max_integration_distance=30.0,
+                     n_frames_invalidate_voxels=S_STARVE,
+                     sdf_var_threshold=MR_THRESHOLD, min_weight_threshold=5,
+                     num_blocks=1 << 19, num_buckets=1 << 15,
+                     max_active_blocks=1 << 17, max_alloc_per_frame=1 << 13)
+
+
+def lidar_config():
+    """make_lidar_wrapper(..., multires=True)'s MapConfig (phase 8),
+    starving every S_L_STARVE scans."""
+    from mrhash_tpu_torch.core.state import MapConfig
+    return MapConfig(alloc_tile=4, virtual_voxel_size=0.20,
+                     sdf_truncation=0.40, max_integration_distance=100.0,
+                     n_frames_invalidate_voxels=S_L_STARVE,
+                     sdf_var_threshold=MR_THRESHOLD, min_weight_threshold=5,
+                     num_blocks=1 << 18, num_buckets=1 << 16,
+                     max_active_blocks=1 << 17, max_alloc_per_frame=1 << 13,
+                     max_coarsen_per_frame=1 << 9)
+
+
+def shard_invariants(group, st, lcfg):
+    """Every occupied key on owner_of(key) (this rank) and on no other
+    rank; occupied + free = the local capacity (a res-1 block and a free
+    low id an eighth of a block).  Returns (this rank's occupied, res-1
+    blocks, every rank's key codes on rank 0 else None)."""
+    import torch
+
+    from mrhash_tpu_torch.parallel import sharding as S
+    t = st.table
+    occ = t.ptr != -2
+    n0 = int((occ & (t.res == 0)).sum())
+    n1 = int((occ & (t.res == 1)).sum())
+    assert 8 * (t.high_count + n0) + t.low_count + n1 \
+        == 8 * lcfg.num_blocks, (t.high_count, n0, t.low_count, n1)
+    keys = t.pos[occ]
+    assert bool((S.owner_of(keys, group.size) == group.rank).all()), \
+        "a key on a rank that does not own it"
+    codes = group.gather_object(key_codes(keys).cpu().numpy())
+    if codes is not None:
+        import numpy as np
+        allc = np.concatenate(codes)
+        assert np.unique(allc).size == allc.size, "a key on two ranks"
+        codes = allc
+    return n0 + n1, n1, codes
+
+
+def shard_run(group, kind, inputs):
+    """(b) or (c): S_FRAMES frames of phase 7's RGB-D orbit or phase 8's
+    LiDAR drive through this rank's sharded step at full width, then the
+    invariants, the launch counts and the sharded mesh.  At n = 1 the
+    RGB-D map after frame S_STARVE - 1 is held against the single-process
+    pipeline's (run first, its launches not counted)."""
+    import numpy as np
+    import torch
+
+    from mrhash_tpu_torch.core import pipeline
+    from mrhash_tpu_torch.core.state import make_state
+    from mrhash_tpu_torch.geowrapper import GeoWrapper
+    from mrhash_tpu_torch.ops import camera as C
+    from mrhash_tpu_torch.ops import fused_integrate as FI
+    from mrhash_tpu_torch.ops import fused_integrate_points as FIP
+    from mrhash_tpu_torch.ops import sample_image as SI
+    from mrhash_tpu_torch.parallel import sharding as S
+
+    dev, n = group.device, group.size
+    rgbd = kind == "rgbd"
+    eye = np.eye(3, dtype=np.float32)
+    if rgbd:
+        cfg = rgbd_config()
+        depths = np.load(inputs["depths"], mmap_mode="r")
+        rgb = torch.from_numpy(np.load(inputs["rgb"])).to(dev)
+        cam0 = C.make_camera(FX, FY, CX, CY, ROWS, COLS, 0.01, 30.0,
+                             device=dev)
+
+        def frame(i):
+            rot, trans, _ = orbit_pose(i)
+            return (C.with_pose(cam0, rot, trans),
+                    torch.from_numpy(np.array(depths[i % ORBIT])).to(dev),
+                    rgb)
+    else:
+        from mrhash_tpu_torch.apps.utils.camera import \
+            calculate_spherical_intrinsics
+        cfg = lidar_config()
+        clouds = np.load(inputs["clouds"], mmap_mode="r")
+        c0 = np.array(clouds[0])
+        K = calculate_spherical_intrinsics(c0[(c0 != 0).any(axis=1)],
+                                           L_ROWS, L_COLS)[0]
+        cam0 = C.make_camera(K[0, 0], K[1, 1], K[0, 2], K[1, 2], L_ROWS,
+                             L_COLS, 0.2, 100.0, C.SPHERICAL, device=dev)
+
+        def frame(i):
+            return (C.with_pose(cam0, eye, lidar_pose(i)),
+                    torch.from_numpy(np.array(clouds[i])).to(dev))
+    lcfg = S.local_config(cfg, n)
+    out = {}
+    single = None
+    if rgbd and n == 1:
+        ref = make_state(cfg.num_blocks, device=dev)
+        for i in range(S_STARVE):
+            ref, _ = pipeline.integrate_rgbd(cfg, ref, *frame(i))
+        single = map_by_key(ref)
+        del ref
+
+    st = S.make_sharded_state(cfg, group.rank, n, dev)
+    step = (S.sharded_integrate_rgbd if rgbd
+            else S.sharded_integrate_points)(cfg, group)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    FI.launch_count = FI.res1_launch_count = SI.launch_count = 0
+    FIP.launch_count = FIP.res1_launch_count = 0
+    group.timed, group.comm_s = True, 0.0
+    ms, comm = [], []
+    for i in range(S_FRAMES):
+        args = frame(i)
+        c0, t0 = group.comm_s, time.perf_counter()
+        st, stats = step(st, *args)
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        comm.append((group.comm_s - c0) * 1e3)
+        if single is not None and i == S_STARVE - 1:
+            blocks, n_w, err = compare_maps(map_by_key(st), single)
+            out["single"] = dict(frame=i, blocks=blocks, weighted=n_w, **err)
+            single = None
+    group.timed = False
+    launches = dict(fused_integrate_rows=FI.launch_count,
+                    fused_integrate_rows_res1=FI.res1_launch_count,
+                    fused_integrate_points_rows=FIP.launch_count,
+                    fused_integrate_points_rows_res1=FIP.res1_launch_count,
+                    sample_image=SI.launch_count)
+    k = ("fused_integrate_rows" if rgbd else "fused_integrate_points_rows")
+    assert launches[k] >= 1 and launches[k + "_res1"] >= 1, launches
+    assert launches["sample_image"] == (1 if rgbd else 3), launches
+    occupied, n1, codes = shard_invariants(group, st, lcfg)
+    steady = ms[S_TIMED:]
+    out.update(launches=launches, occupied=occupied, res1=n1,
+               capacity=lcfg.num_blocks, stats=stats,
+               median_ms=statistics.median(steady),
+               fps=1e3 / statistics.fmean(steady),
+               comm_ms=statistics.fmean(comm[S_TIMED:]),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    if codes is not None:
+        out["codes"] = codes
+
+    geo = None
+    if group.rank == 0:
+        kw = dict(sdf_truncation=cfg.sdf_truncation, sdf_truncation_scale=0.0,
+                  integration_weight_sample=1,
+                  virtual_voxel_size=cfg.virtual_voxel_size,
+                  n_frames_invalidate_voxels=0, voxel_extents_scale=1,
+                  min_weight_threshold=cfg.min_weight_threshold,
+                  sdf_var_threshold=cfg.sdf_var_threshold,
+                  gs_optimization_param_path="", num_blocks=1 << 10,
+                  max_depth=cfg.max_integration_distance, profiling=False,
+                  device=dev)
+        geo = GeoWrapper(**kw)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        m = S.extract_mesh_sharded(cfg, st, geo, os.path.join(tmp, "m.ply"),
+                                   group)
+    if m is not None:
+        v = m.vertices
+        assert v.shape[0] > 10000 and np.isfinite(v).all(), v.shape
+        if rgbd:
+            on = float((np.abs(np.abs(v).max(axis=1) - HALF) < 0.03).mean())
+        else:
+            ground = np.abs(v[:, 2] - L_GROUND) < L_TOL
+            wall = np.abs(np.hypot(v[:, 0], v[:, 1]) - L_WALL) < L_TOL
+            on = float((ground | wall).mean())
+        assert on > 0.95, on
+        out.update(mesh_vertices=int(v.shape[0]), mesh_on_surface=on,
+                   mesh_s=time.perf_counter() - t0)
+    return out
+
+
+def phase13_rank(group, parts, inputs):
+    """Phase 13's rank program (parallel/launch.py::run_ranks): the parts
+    in order ("small", "rgbd", "lidar"), the card's cached memory freed
+    between them."""
+    import torch
+    out = {}
+    for part in parts:
+        out[part] = (shard_small(group) if part == "small"
+                     else shard_run(group, part, inputs))
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_sharded(depths, rgb, clouds, smi):
+    """Phase 13: the sharded steps through parallel/launch.py, two ranks
+    sharing the card over gloo ((a) card = CPU on the small scenes, (b)
+    RGB-D and (c) LiDAR at full width), then one rank over NCCL ((b) with
+    the single-process gate, (c)).  Returns ({kernel: {"rgbd" | "lidar":
+    {"n1" | "n2": [launches per rank]}}} for the kernels each run launched,
+    the figures)."""
+    import numpy as np
+    import torch
+
+    from mrhash_tpu_torch.parallel import launch
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = dict(depths=os.path.join(tmp, "depths.npy"),
+                      rgb=os.path.join(tmp, "rgb.npy"),
+                      clouds=os.path.join(tmp, "clouds.npy"))
+        np.save(inputs["depths"], np.stack(depths))
+        np.save(inputs["rgb"], rgb)
+        np.save(inputs["clouds"], np.stack(clouds))
+        for n, backend, parts in ((2, "gloo", ("small", "rgbd", "lidar")),
+                                  (1, "nccl", ("rgbd", "lidar"))):
+            t0 = time.perf_counter()
+            res[n] = launch.run_ranks(phase13_rank, n, backend=backend,
+                                      device="cuda", timeout_s=S_TIMEOUT,
+                                      args=(parts, inputs))
+            log(f"sharded: n = {n} over {backend} in "
+                f"{time.perf_counter() - t0:.1f} s")
+    for r, out in enumerate(res[2]):
+        log(f"sharded (a) rank {r} of 2, card = CPU: {out['small']}")
+    figures = dict(card=smi, small=[o["small"] for o in res[2]])
+    launches = {}
+    for kind in ("rgbd", "lidar"):
+        codes = {n: res[n][0][kind].pop("codes") for n in (1, 2)}
+        both = np.intersect1d(codes[1], codes[2]).size
+        overlap = both / np.union1d(codes[1], codes[2]).size
+        figures[kind] = {"key_overlap": overlap}
+        for n in (1, 2):
+            per_rank = [o[kind] for o in res[n]]
+            for k in per_rank[0]["launches"]:
+                counts = [o["launches"][k] for o in per_rank]
+                if any(counts):
+                    launches.setdefault(k, {}).setdefault(kind, {})[
+                        f"n{n}"] = counts
+            for r, o in enumerate(per_rank):
+                log(f"sharded ({'b' if kind == 'rgbd' else 'c'}) {kind} "
+                    f"n = {n} rank {r}: {o['fps']:.2f} frames/s (median "
+                    f"{o['median_ms']:.3f} ms), collectives "
+                    f"{o['comm_ms']:.3f} ms/frame, {o['occupied']} blocks "
+                    f"({o['res1']} at res 1) of {o['capacity']}, peak "
+                    f"{o['peak_gib']:.3f} GiB, launches {o['launches']}"
+                    + (f", mesh {o['mesh_vertices']} vertices "
+                       f"{o['mesh_on_surface']:.4f} on the surface in "
+                       f"{o['mesh_s']:.1f} s" if "mesh_s" in o else "")
+                    + (f", = single-process at frame {o['single']['frame']}"
+                       f": {o['single']}" if "single" in o else "") + f" [{smi}]")
+            figures[kind][f"n{n}"] = per_rank
+        log(f"sharded {kind}: key overlap n = 2 / n = 1 {overlap:.6f} "
+            f"({both} keys in both)")
+    assert "single" in res[1][0]["rgbd"], "the n = 1 gate did not run"
+    figures["seconds"] = time.perf_counter() - t_phase
+    log(f"sharded: phase 13 in {figures['seconds']:.1f} s")
+    return launches, figures
+
+
 def main():
     t_main = time.perf_counter()
     import torch
@@ -2924,6 +3335,9 @@ def main():
     torch.cuda.empty_cache()
     quality["memory"] = run_memory_report(smi)
 
+    # 13. the sharded steps, one process per rank
+    s_launches, sharding = run_sharded(depths, rgb, clouds, smi)
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "mrhash_tpu",
                                            "bench", "quality_eval"))
@@ -2990,6 +3404,10 @@ def main():
             entry.update({"sph_" + k: k2s[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")})
+        if name in s_launches:         # phase 13, per run and rank
+            entry["sharded_launches"] = s_launches[name]
+            if name + "_res1" in s_launches:
+                entry["sharded_res1_launches"] = s_launches[name + "_res1"]
         if name == "blend_forward":
             entry.update({k: k4[k] for k in ("warp_steps", "exit_warp_steps")})
         if name == "blend_backward":   # at GSFinalOpt's cap, K = 128
@@ -3005,6 +3423,7 @@ def main():
     print(json.dumps({"points": dict(card=smi, c14=c14,
                                      small=small_points, **prun)}))
     print(json.dumps({"quality": dict(card=smi, **quality)}))
+    print(json.dumps({"sharding": sharding}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

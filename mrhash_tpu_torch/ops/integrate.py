@@ -657,7 +657,7 @@ def integrate_points_sdf(cfg: MapConfig, table: H.HashTable, pool: VoxelPool,
 FAR = 1e30   # z-buffer sentinel
 
 
-def starve_mask(cfg: MapConfig, cam: C.Camera, bpos, bres):
+def starve_mask(cfg: MapConfig, cam: C.Camera, bpos, bres, group=None):
     """Geometry half of starveVoxelsKernel (voxel_data_structures.cu:
     1596-1671): the window-layout [A,512] mask of the front-most window
     voxel per pixel, over both resolutions.  One-shot over the whole window
@@ -665,7 +665,10 @@ def starve_mask(cfg: MapConfig, cam: C.Camera, bpos, bres):
     each voxel's own pixel goes through kernel K2 (ops/sample_image.py), as
     the reference's fused path reads it back through its image sampler.
     Voxels tied at the exact front depth all starve (deviation D11 of the
-    reference)."""
+    reference).  With `group` (a parallel/launch.py RankGroup, the sharded
+    steps) the z-buffer is all_reduce(MIN)-merged across its ranks before
+    the readback, so each rank's winners are the front-most voxels of the
+    whole map."""
     vvs = cfg.virtual_voxel_size
     pi, valid = _block_voxel_grid(bpos, bres)
     pf = X.virtual_voxel_pos_to_world(vvs, pi)
@@ -679,6 +682,8 @@ def starve_mask(cfg: MapConfig, cam: C.Camera, bpos, bres):
     d = torch.where(ok, depth, FAR)
     zbuf = torch.full((HW + 1,), FAR, dtype=torch.float32, device=d.device)
     zbuf.scatter_reduce_(0, pix.reshape(-1), d.reshape(-1), "amin")
+    if group is not None:
+        group.all_reduce(zbuf, "min")
     zimg = torch.zeros((2, cam.rows, cam.cols), dtype=torch.float32,
                        device=d.device)
     zimg[0] = zbuf[:HW].reshape(cam.rows, cam.cols)
@@ -697,10 +702,10 @@ def apply_starve(pool: VoxelPool, bptr, bres, starved):
 
 
 def starve_voxels(cfg: MapConfig, pool: VoxelPool, cam: C.Camera, bpos,
-                  bptr, bres):
-    """starveVoxelsKernel: the front-most voxel per pixel loses one unit of
-    weight."""
-    apply_starve(pool, bptr, bres, starve_mask(cfg, cam, bpos, bres))
+                  bptr, bres, group=None):
+    """starveVoxelsKernel: the front-most voxel per pixel (of the whole
+    sharded map with `group`, starve_mask) loses one unit of weight."""
+    apply_starve(pool, bptr, bres, starve_mask(cfg, cam, bpos, bres, group))
 
 
 def _clear_blocks(pool: VoxelPool, bptr, bres):

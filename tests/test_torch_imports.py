@@ -6,8 +6,10 @@ builds without writing into the repo's `native/` directory.
   readers point_cloud2, parse_trajectory, parse_calib_file too), the
   mesh sweep's modules (meshing, transvoxel, raycast) and the evaluation
   path (eval_utils, eval_reconstruction, quality_eval, the label tables,
-  the numpy MADtree) leaves no `jax` and no `mrhash_tpu` module in
-  sys.modules, nor tools/quality_eval.py or bench.py, and neither
+  the numpy MADtree) and the sharded map's modules (parallel.sharding,
+  parallel.launch; no process group is started) leaves no `jax` and no
+  `mrhash_tpu` module in sys.modules, nor tools/quality_eval.py or
+  bench.py, and neither
   `rosbags` nor `yaml`, which the VBR runner imports only when it opens a
   bag or a calibration file, nor `scipy`, which eval_utils imports when
   nn_distances first runs (it is loaded after that call); so does
@@ -47,6 +49,10 @@ import mrhash_tpu_torch.apps.eval_reconstruction
 import mrhash_tpu_torch.apps.quality_eval
 import mrhash_tpu_torch.apps.utils.labels
 import mrhash_tpu_torch.apps.utils.semantic_segmentation
+import mrhash_tpu_torch.parallel.launch
+import mrhash_tpu_torch.parallel.sharding
+import torch.distributed
+assert not torch.distributed.is_initialized(), "an import started a group"
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mrhash_tpu", "rosbags",
                                     "yaml", "scipy", "bench", "quality_eval"))
