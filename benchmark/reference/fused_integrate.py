@@ -1,0 +1,128 @@
+"""K1's plain twin (fused TSDF integrate of the block window, both
+resolutions): the same f32 operations in the same order, entry by entry.
+"""
+from __future__ import annotations
+
+import torch
+
+from reference.state import (check_windows, put_windows,
+                             window_voxels)
+
+LANES = 512
+CAM_VEC_LEN = 32
+FAR_F32 = 3e38
+
+def make_cam_vec(cam, vvs, trunc0, trunc1, max_int, w_sample, w_max):
+    """Pack camera + integration constants into the kernel's f32[32]:
+    0 fx, 1 fy, 2 cx, 3 cy, 4 min_depth, 5 max_depth, 6..14 rot (row-major
+    cam->world), 15..17 trans, 18 vvs, 19 trunc0, 20 trunc1,
+    21 max_integration_distance, 22 w_sample, 23 w_max, 24 rows, 25 cols."""
+    dev = cam.rot.device
+    head = torch.stack([cam.fx, cam.fy, cam.cx, cam.cy, cam.min_depth,
+                        cam.max_depth])
+    tail = torch.tensor([vvs, trunc0, trunc1, max_int, float(w_sample),
+                         float(w_max), float(cam.rows), float(cam.cols)],
+                        dtype=torch.float32, device=dev)
+    pad = torch.zeros(CAM_VEC_LEN - 26, dtype=torch.float32, device=dev)
+    return torch.cat([head, cam.rot.reshape(-1), cam.trans, tail, pad])
+
+
+def _lattice_offsets(res):
+    """Voxel-lattice offsets (x, y, z) f32[A,512] of each window lane: the
+    8^3 lattice of a res-0 block, the 4^3 lattice at twice the spacing of a
+    res-1 block (lanes past 64 repeat its last voxel)."""
+    lane = torch.arange(LANES, device=res.device)
+    l4 = torch.clamp(lane, max=63)
+    low = (res == 1)[:, None]
+    return tuple(torch.where(low, lo, hi).to(torch.float32) for lo, hi in (
+        ((l4 % 4) * 2, lane % 8),
+        (((l4 // 4) % 4) * 2, (lane // 8) % 8),
+        ((l4 // 16) * 2, lane // 64)))
+
+
+def fused_integrate_rows_ref(pool, depth_img, rgb_img, cam_vec, bpos, ptr,
+                             res):
+    """Plain PyTorch twin of the kernel: the same f32 operations in the
+    same order, entry by entry.  Updates each entry's window in place and
+    returns the flags f32[A,4] over its window (min |sdf| over weighted
+    lanes, max weight, weight sum, sumsq sum over weighted lanes)."""
+    c = cam_vec
+    fx, fy, cx, cy, min_d, max_d = c[0], c[1], c[2], c[3], c[4], c[5]
+    r00, r01, r02, r10, r11, r12, r20, r21, r22 = (c[6 + k] for k in range(9))
+    tx, ty, tz = c[15], c[16], c[17]
+    vvs, t0, t1, max_int = c[18], c[19], c[20], c[21]
+    w_samp, w_max, rows_f, cols_f = c[22], c[23], c[24], c[25]
+
+    offx, offy, offz = _lattice_offsets(res)
+    bp = bpos.to(torch.float32)
+    pwx = (bp[:, 0:1] * 8.0 + offx) * vvs - tx
+    pwy = (bp[:, 1:2] * 8.0 + offy) * vvs - ty
+    pwz = (bp[:, 2:3] * 8.0 + offz) * vvs - tz
+    pcx = pwx * r00 + pwy * r10 + pwz * r20
+    pcy = pwx * r01 + pwy * r11 + pwz * r21
+    pcz = pwx * r02 + pwy * r12 + pwz * r22
+
+    depth_ok = (pcz > min_d) & (pcz <= max_d)
+    zs = torch.where(pcz == 0.0, torch.ones_like(pcz), pcz)
+    lim = float(1 << 30)   # off-image values: any int that fails the bounds
+    row = torch.clamp(torch.trunc(fy * pcy / zs + cy + 0.5), -lim, lim)
+    col = torch.clamp(torch.trunc(fx * pcx / zs + cx + 0.5), -lim, lim)
+    ok = (depth_ok & (row >= 0) & (col >= 0) & (row < rows_f)
+          & (col < cols_f))
+    W_ = depth_img.shape[1]
+    flat = torch.where(ok, row.to(torch.int64) * W_ + col.to(torch.int64), 0)
+    depth = torch.where(ok, depth_img.reshape(-1)[flat], 0.0)
+    pk = torch.where(ok, rgb_img.reshape(-1)[flat], 0)
+
+    vidx, valid = window_voxels(ptr, res)
+    sdf0, ssq0 = pool.sdf.view(-1)[vidx], pool.sumsq.view(-1)[vidx]
+    w0, rgbp0 = pool.weight.view(-1)[vidx], pool.rgbp.view(-1)[vidx]
+
+    depth_ok2 = ok & (depth != 0.0) & (depth <= max_int)
+    s = depth - pcz
+    trunc = t0 + t1 * depth
+    inside = s > -trunc
+    s = torch.clamp(s, min=-trunc, max=trunc)
+    update = valid & depth_ok2 & inside
+
+    w0f = w0.to(torch.float32)
+    half = vvs * 0.5
+    curr_mean = torch.where(w0 > 0, sdf0, s)
+    delta = (s - curr_mean) / half
+    first = w0 == 0
+    chans = []
+    for sh in (0, 8, 16):
+        new = ((pk >> sh) & 255).to(torch.float32)
+        old = torch.where(first, new, ((rgbp0 >> sh) & 255).to(torch.float32))
+        chans.append(torch.floor(0.5 * old + 0.5 * new + 0.5))
+    rgbp_m = (chans[0] + chans[1] * 256.0 + chans[2] * 65536.0).to(
+        torch.int32)
+    m_sdf = (sdf0 * w0f + s * w_samp) / (w0f + w_samp)
+    m_w = torch.minimum(w_max, w0f + w_samp).to(torch.int32)
+    delta2 = (s - m_sdf) / half
+    m_ssq = ssq0 + delta * delta2
+
+    out_sdf = torch.where(update, m_sdf, sdf0)
+    out_ssq = torch.where(update, m_ssq, ssq0)
+    out_w = torch.where(update, m_w, w0)
+    for field, vals in ((pool.sdf, out_sdf), (pool.sumsq, out_ssq),
+                        (pool.weight, out_w),
+                        (pool.rgbp, torch.where(update, rgbp_m, rgbp0))):
+        put_windows(field, vidx, valid, vals)
+
+    out_w = torch.where(valid, out_w, 0)
+    weighted = out_w > 0
+    return torch.stack([
+        torch.where(weighted, torch.abs(out_sdf), FAR_F32).amin(dim=1),
+        out_w.amax(dim=1).to(torch.float32),
+        out_w.sum(dim=1).to(torch.float32),
+        torch.where(weighted, out_ssq, 0.0).sum(dim=1)], dim=1)
+
+
+def fused_integrate_rows(pool, depth_img, rgb_img, cam_vec, bpos, ptr, res):
+    """K1's plain twin on any device: updates each entry's window in place
+    and returns flags f32[A,4]."""
+    if bpos.shape[0]:
+        check_windows(ptr, res, pool.sdf.shape[0])
+    return fused_integrate_rows_ref(pool, depth_img, rgb_img, cam_vec, bpos,
+                                    ptr, res)
