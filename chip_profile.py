@@ -12,6 +12,7 @@ of the RGB-D frame time against another checkout of the port.
     python3 chip_profile.py --rgbd-ab OTHER_ROOT
     python3 chip_profile.py --gs-ab OTHER_ROOT
     python3 chip_profile.py --kernels-ab OTHER_ROOT [OTHER_ROOT ...]
+    python3 chip_profile.py --syncs [OTHER_ROOT]
 
 The first form drives chip_smoke.py's LiDAR cell
 (configurations/newer_college.cfg, 64x1024 scans of the synthetic ground +
@@ -83,6 +84,15 @@ mixed multi-res window), K4 and K5 against this checkout's on
 chip_smoke.py's phase-3 inputs (K4 at K = 64, K5 at K = 64 and K = 128),
 and times them in turns by CUDA-graph replay, with the bound each is
 held to.
+The --syncs form runs each cell of the benchmark (benchmark/: the
+configuration's GeoWrapper fed the traffic's frames from seed 1) through
+its warm-up, then 12 frames under torch.profiler with
+torch.cuda.set_sync_debug_mode("warn"), in a fresh process: per frame
+the runtime's synchronizations (events named *Synchronize*) inside a
+range around compute(), last_stats' host_syncs, and the sync sites (the
+innermost frame of the package under each warning's stack, file:line);
+with OTHER_ROOT, the same frames through OTHER_ROOT's mrhash_tpu_torch
+in a fresh process too, for the count on both sides.
 Prints the card's name and power limit beside the numbers.  Needs a card.
 """
 import json
@@ -889,6 +899,119 @@ def scan_profile(smi, label, make, feed, stage_cost=False):
     return gw, n
 
 
+SYNC_FRAMES = 12
+
+
+def sync_sites_run():
+    """The --syncs form's run with whichever mrhash_tpu_torch is first
+    on sys.path; prints a JSON line {package, cells: {cell: [{prof,
+    counted, sites}, ...]}}."""
+    import traceback
+    import warnings
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import mrhash_tpu_torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    bench_dir = os.path.join(here, "benchmark")
+    sys.path.insert(1, bench_dir)
+    import harness
+    import program
+    import scenes
+    pkg = os.path.dirname(mrhash_tpu_torch.__file__)
+    sites = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        # the innermost frame of the package outside the counting helpers
+        stack = traceback.extract_stack()[:-1]
+        for fr in reversed(stack):
+            if (fr.filename.startswith(pkg) and not fr.filename.endswith(
+                    os.path.join("utils", "profiler.py"))):
+                sites.append(f"{os.path.relpath(fr.filename, pkg)}:"
+                             f"{fr.lineno}")
+                return
+        sites.append(" < ".join(f"{os.path.basename(fr.filename)}:"
+                                f"{fr.lineno}" for fr in stack[::-1][:6]))
+
+    out = {}
+    for cell in ("replica_rgbd_mr.orbit", "newer_college_lidar_mr.loop"):
+        _, _, conf, traffic, _ = harness.load_cell(
+            os.path.join(here, "BENCHMARK.json"), cell, bench_dir)
+        frames = scenes.make(traffic, conf["sensor"], 1, "cuda")
+        gw = program.build(conf, frames, torch.device("cuda"))
+        warm = traffic["warmup_frames"]
+        for i in range(warm):
+            program.feed(gw, frames, i)
+        torch.cuda.synchronize()
+        compute, rows = gw.compute, []
+
+        def traced_compute():
+            with record_function("probe.compute"):
+                compute()
+        gw.compute = traced_compute
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(warm, warm + SYNC_FRAMES):
+                del sites[:]
+                with warnings.catch_warnings():
+                    warnings.simplefilter("always")
+                    warnings.showwarning = show
+                    torch.cuda.set_sync_debug_mode("warn")
+                    st = program.feed(gw, frames, i)
+                    torch.cuda.set_sync_debug_mode("default")
+                by_site = {}
+                for k in sites:
+                    by_site[k] = by_site.get(k, 0) + 1
+                rows.append(dict(counted=st.get("host_syncs"),
+                                 sites=by_site))
+            torch.cuda.synchronize()
+        # host events only: a range also has a device-side twin
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CPU]
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in events if e.name == "probe.compute")
+        syncs = [e.time_range.start for e in events
+                 if "Synchronize" in e.name]
+        for row, (a, b) in zip(rows, spans):
+            row["prof"] = sum(a <= t <= b for t in syncs)
+        gw.compute = compute
+        program.close(gw)
+        out[cell] = rows
+        del gw
+        torch.cuda.empty_cache()
+    print(json.dumps(dict(package=pkg, cells=out)), flush=True)
+
+
+def sync_sites(other_root=None):
+    """The --syncs form: sync_sites_run in a fresh process for this
+    checkout (and OTHER_ROOT); prints per cell and frame the profiler's
+    synchronizations, host_syncs and the other side's synchronizations,
+    then each site's syncs per frame."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    mine = _run_in(here, "sync_sites_run")["cells"]
+    other = (_run_in(os.path.abspath(other_root), "sync_sites_run")["cells"]
+             if other_root else None)
+    print(f"--syncs [{S.nvidia_smi_line()}]: per frame (profiler, "
+          "host_syncs" + (", OTHER_ROOT's profiler)" if other else ")"))
+    for cell, rows in mine.items():
+        per = [(r["prof"], r["counted"]) + (
+            (other[cell][k]["prof"],) if other else ())
+            for k, r in enumerate(rows)]
+        print(f"  {cell}: {per}")
+        total = {}
+        for r in rows:
+            for k, v in r["sites"].items():
+                total[k] = total.get(k, 0) + v
+        print(f"  {cell}: sites, syncs per frame over {len(rows)} frames "
+              "(set_sync_debug_mode warnings):")
+        for k, v in sorted(total.items(), key=lambda kv: -kv[1]):
+            print(f"    {v / len(rows):6.2f}  {k}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -905,6 +1028,8 @@ def main():
         return gs_ab(sys.argv[2])
     if len(sys.argv) >= 3 and sys.argv[1] == "--kernels-ab":
         return kernels_ab(sys.argv[2:])
+    if sys.argv[1:2] == ["--syncs"] and len(sys.argv) <= 3:
+        return sync_sites(*sys.argv[2:])
     smi = S.nvidia_smi_line()
     print(f"card: {smi}", flush=True)
     if sys.argv[1:] == ["--gs"]:

@@ -168,6 +168,26 @@ import sys
 import tempfile
 import time
 
+# kernel launch counts (utils/profiler.COUNTS, under the wrappers' names;
+# mrhash_tpu_torch is imported inside the functions, so chip_profile.py can
+# put another checkout's first)
+K1_NAMES = ("fused_integrate_rows", "fused_integrate_rows_res1",
+            "sample_image")
+K3_NAMES = ("fused_integrate_points_rows",
+            "fused_integrate_points_rows_res1")
+
+
+def reset_launches(*names):
+    from mrhash_tpu_torch.utils.profiler import COUNTS
+    for name in names:
+        COUNTS[name] = 0
+
+
+def launch_counts(*names):
+    from mrhash_tpu_torch.utils.profiler import COUNTS
+    return {name: COUNTS[name] for name in names}
+
+
 ROWS, COLS = 680, 1200
 FX = FY = 600.0
 CX, CY = 599.5, 339.5
@@ -820,6 +840,7 @@ def compare_lidar_kernel(clouds, multires=False):
     against the twin there too), the whole mixed window in one launch, and
     an empty kernel over the res-1 path's grid, against the twin over the
     res-0 or res-1 entries."""
+    from mrhash_tpu_torch.utils.profiler import COUNTS
     import torch
 
     from mrhash_tpu_torch.ops import camera as C
@@ -843,7 +864,8 @@ def compare_lidar_kernel(clouds, multires=False):
     src = gw.state.pool
     pools = clone_pools(src)
     del gw
-    c0, c1 = FIP.launch_count, FIP.res1_launch_count
+    c0, c1 = (COUNTS["fused_integrate_points_rows"],
+              COUNTS["fused_integrate_points_rows_res1"])
     fk = FIP.fused_integrate_points_rows(pools[0], img, pix, r_vox, ptr, res,
                                          consts)
     ft = FIP.fused_integrate_points_rows_ref(pools[1], img, pix, r_vox, ptr,
@@ -851,7 +873,8 @@ def compare_lidar_kernel(clouds, multires=False):
     torch.cuda.synchronize()
     err = window_error(pools, ptr, res, ("sdf", "sumsq", "weight"))
     A, n1 = ptr.shape[0], int(res.sum())
-    assert (FIP.launch_count - c0, FIP.res1_launch_count - c1) == (
+    assert (COUNTS["fused_integrate_points_rows"] - c0,
+            COUNTS["fused_integrate_points_rows_res1"] - c1) == (
         int(A > n1), int(n1 > 0)), "K3: one launch for the window"
     kind = 1 if multires else 0
     e = torch.nonzero(res == kind).flatten()
@@ -1622,8 +1645,6 @@ def run_walk(device="cuda", rows=ROWS, cols=COLS, f=FX, warm=W_WARM,
     import numpy as np
     import torch
 
-    from mrhash_tpu_torch.ops import fused_integrate as FI
-    from mrhash_tpu_torch.ops import sample_image as SI
 
     cuda = device == "cuda"
 
@@ -1639,7 +1660,7 @@ def run_walk(device="cuda", rows=ROWS, cols=COLS, f=FX, warm=W_WARM,
     sync()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    FI.launch_count = FI.res1_launch_count = SI.launch_count = 0
+    reset_launches(*K1_NAMES)
     frame_ms, n_events = [], []
     for i in range(warm + timed):
         t0 = time.perf_counter()
@@ -1647,9 +1668,7 @@ def run_walk(device="cuda", rows=ROWS, cols=COLS, f=FX, warm=W_WARM,
         sync()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         n_events.append(len(st.out_events))
-    launches = {"fused_integrate_rows": FI.launch_count,
-                "fused_integrate_rows_res1": FI.res1_launch_count,
-                "sample_image": SI.launch_count}
+    launches = launch_counts(*K1_NAMES)
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     st.join()
     events = list(st.out_events)
@@ -1751,14 +1770,12 @@ def run_slice(depths, rgb, multires=False, mesh=True):
     import numpy as np
     import torch
 
-    from mrhash_tpu_torch.ops import fused_integrate as FI
-    from mrhash_tpu_torch.ops import sample_image as SI
 
     tag = "multires" if multires else "run"
     gw = make_wrapper("cuda", multires)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    FI.launch_count = FI.res1_launch_count = SI.launch_count = 0
+    reset_launches(*K1_NAMES)
     frame_ms, occupied = [], []
     for i in range(N_FRAMES):
         t0 = time.perf_counter()
@@ -1766,9 +1783,7 @@ def run_slice(depths, rgb, multires=False, mesh=True):
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         occupied.append(gw.last_stats["occupied_blocks"])
-    launches = {"fused_integrate_rows": FI.launch_count,
-                "fused_integrate_rows_res1": FI.res1_launch_count,
-                "sample_image": SI.launch_count}
+    launches = launch_counts(*K1_NAMES)
     peak = torch.cuda.max_memory_allocated()
     stats = gw.last_stats
     n1 = res1_blocks(gw)
@@ -1835,13 +1850,12 @@ def run_lidar(clouds, multires=False):
     (launches of K3's paths over the scans, numbers)."""
     import torch
 
-    from mrhash_tpu_torch.ops import fused_integrate_points as FIP
 
     tag = "multires lidar" if multires else "lidar"
     gw = make_lidar_wrapper("cuda", clouds[0], multires)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    FIP.launch_count = FIP.res1_launch_count = 0
+    reset_launches(*K3_NAMES)
     frame_ms, occupied = [], []
     for i in range(L_FRAMES):
         t0 = time.perf_counter()
@@ -1849,8 +1863,7 @@ def run_lidar(clouds, multires=False):
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         occupied.append(gw.last_stats["occupied_blocks"])
-    launches = {"fused_integrate_points_rows": FIP.launch_count,
-                "fused_integrate_points_rows_res1": FIP.res1_launch_count}
+    launches = launch_counts(*K3_NAMES)
     peak = torch.cuda.max_memory_allocated()
     steady = frame_ms[L_STEADY:]
     stats = gw.last_stats
@@ -1923,15 +1936,13 @@ def run_points(clouds, projective):
     the wall.  Returns (launches, numbers)."""
     import torch
 
-    from mrhash_tpu_torch.ops import fused_integrate_points as FIP
-    from mrhash_tpu_torch.ops import sample_image as SI
 
     tag = "points (b) projective" if projective else "points (a) point-centric"
     gw = make_lidar_wrapper("cuda", clouds[0], n_starve=L_STARVE,
                             projective=projective)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    SI.launch_count = FIP.launch_count = FIP.res1_launch_count = 0
+    reset_launches("sample_image", *K3_NAMES)
     frame_ms, set_ms, visited, distinct, freed = [], [], [], [], []
     for i in range(L_FRAMES):
         t0 = time.perf_counter()
@@ -1946,9 +1957,7 @@ def run_points(clouds, projective):
         visited.append(st.get("visited_keys", 0))
         distinct.append(st.get("distinct_keys", 0))
         freed.append(st["gc_freed"])
-    launches = {"sample_image": SI.launch_count,
-                "fused_integrate_points_rows": FIP.launch_count,
-                "fused_integrate_points_rows_res1": FIP.res1_launch_count}
+    launches = launch_counts("sample_image", *K3_NAMES)
     peak = torch.cuda.max_memory_allocated()
     timed = frame_ms[-L_TIMED:]
     fps = 1e3 / statistics.fmean(timed)
@@ -1999,14 +2008,13 @@ def run_gs_path(train, holdout, more, device="cuda", rows=ROWS, cols=COLS,
     """tools/bench_gs.py's protocol through the port's GeoWrapper; returns
     (launches, numbers).  The GS frame time is the container's run_gs
     (seed, insert and the frame's Adam steps), synchronized."""
+    from mrhash_tpu_torch.utils.profiler import COUNTS
     import numpy as np
     import torch
 
-    from mrhash_tpu_torch.gs import blend as B
     from mrhash_tpu_torch.gs import losses as GL
     from mrhash_tpu_torch.gs.container import _cam_dict
     from mrhash_tpu_torch.ops import camera as C
-    from mrhash_tpu_torch.ops import fused_integrate as FI
 
     cuda = device == "cuda"
 
@@ -2039,8 +2047,8 @@ def run_gs_path(train, holdout, more, device="cuda", rows=ROWS, cols=COLS,
     sync()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    B.launch_count.update(blend_forward=0, blend_backward=0)
-    FI.launch_count = 0
+    reset_launches("blend_forward", "blend_backward",
+                   "fused_integrate_rows")
     for f in train:
         feed_gs(gw, f)
     seeded = gc.model.count
@@ -2069,20 +2077,20 @@ def run_gs_path(train, holdout, more, device="cuda", rows=ROWS, cols=COLS,
     assert len(files) == 1 and (f"element vertex {gc.model.count}".encode()
                                 in head), (files, head[:60])
 
-    n4, n5 = B.launch_count["blend_forward"], B.launch_count["blend_backward"]
+    n4, n5 = COUNTS["blend_forward"], COUNTS["blend_backward"]
     for f in more:
         feed_gs(gw, f)
     sync()
     per_frame = dict(
-        blend_forward=(B.launch_count["blend_forward"] - n4) / len(more),
-        blend_backward=(B.launch_count["blend_backward"] - n5) / len(more))
-    launches = dict(B.launch_count)
+        blend_forward=(COUNTS["blend_forward"] - n4) / len(more),
+        blend_backward=(COUNTS["blend_backward"] - n5) / len(more))
+    launches = launch_counts("blend_forward", "blend_backward")
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     steady = gs_ms[-len(more):]
     log(f"gs: {len(train) + len(more)} frames; Gaussians {seeded} after "
         f"the training frames, {gc.model.count} after all; keyframes "
         f"{len(gc.keyframes)}; launches {launches}, per frame of the pan "
-        f"{per_frame}; K1 launches {FI.launch_count}")
+        f"{per_frame}; K1 launches {COUNTS['fused_integrate_rows']}")
     log(f"gs: GS frame (run_gs) over frames 2-{1 + len(more)}: median "
         f"{statistics.median(steady):.3f} ms, mean "
         f"{statistics.fmean(steady):.3f} ms; training frames "
@@ -2100,7 +2108,8 @@ def run_gs_path(train, holdout, more, device="cuda", rows=ROWS, cols=COLS,
         f"{GS_FINAL_K} (in an i8 layout: "
         f"{n_tiles * GS_K * 256 / 1e6:.1f} / "
         f"{n_tiles * GS_FINAL_K * 256 / 1e6:.1f} MB)")
-    assert FI.launch_count == len(train) + len(more), FI.launch_count
+    n_k1 = COUNTS["fused_integrate_rows"]
+    assert n_k1 == len(train) + len(more), n_k1
     assert per_frame["blend_forward"] >= 1 and per_frame[
         "blend_backward"] >= 1, per_frame
     assert all(np.isfinite(v) for v in (*psnr0.values(), *psnr1.values()))
@@ -2578,19 +2587,15 @@ def quality_run(scene, multires, smi):
     import torch
 
     from mrhash_tpu_torch.apps import quality_eval as Q
-    from mrhash_tpu_torch.ops import fused_integrate as FI
-    from mrhash_tpu_torch.ops import sample_image as SI
     tag = f"quality {scene}{' multi-res' if multires else ''}"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     stats = {}
-    FI.launch_count = FI.res1_launch_count = SI.launch_count = 0
+    reset_launches(*K1_NAMES)
     rows = Q.run_quality(frames=Q_FRAMES, res="replica",
                          n_eval_points=Q_POINTS, scene=scene,
                          multires=multires, device="cuda", stats=stats)
-    launches = {"fused_integrate_rows": FI.launch_count,
-                "fused_integrate_rows_res1": FI.res1_launch_count,
-                "sample_image": SI.launch_count}
+    launches = launch_counts(*K1_NAMES)
     peak = torch.cuda.max_memory_allocated() / 2**30
     r5 = next(r for r in rows if r["threshold"] == 0.05)
     for what, key in (("frames", "frames_s"), ("scene (host)", "scene_s"),
@@ -2631,18 +2636,15 @@ def run_starve_setter(depths, rgb, smi):
     launches exactly 3 times over those 30 frames."""
     import torch
 
-    from mrhash_tpu_torch.ops import fused_integrate as FI
-    from mrhash_tpu_torch.ops import sample_image as SI
     gw = make_wrapper("cuda", starve=0)
     feed(gw, 0, depths, rgb)
     gw.setNFramesInvalidateVoxels(Q_STARVE)
     torch.cuda.synchronize()
-    FI.launch_count = FI.res1_launch_count = SI.launch_count = 0
+    reset_launches(*K1_NAMES)
     for i in range(1, 31):
         feed(gw, i, depths, rgb)
     torch.cuda.synchronize()
-    launches = {"fused_integrate_rows": FI.launch_count,
-                "sample_image": SI.launch_count}
+    launches = launch_counts("fused_integrate_rows", "sample_image")
     gw.close()
     log(f"setters: setNFramesInvalidateVoxels({Q_STARVE}) after frame 0, "
         f"30 more frames: launches {launches} [{smi}]")
@@ -2948,9 +2950,6 @@ def shard_run(group, kind, inputs):
     from mrhash_tpu_torch.core.state import make_state
     from mrhash_tpu_torch.geowrapper import GeoWrapper
     from mrhash_tpu_torch.ops import camera as C
-    from mrhash_tpu_torch.ops import fused_integrate as FI
-    from mrhash_tpu_torch.ops import fused_integrate_points as FIP
-    from mrhash_tpu_torch.ops import sample_image as SI
     from mrhash_tpu_torch.parallel import sharding as S
 
     dev, n = group.device, group.size
@@ -2997,8 +2996,7 @@ def shard_run(group, kind, inputs):
             else S.sharded_integrate_points)(cfg, group)
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    FI.launch_count = FI.res1_launch_count = SI.launch_count = 0
-    FIP.launch_count = FIP.res1_launch_count = 0
+    reset_launches(*K1_NAMES, *K3_NAMES)
     group.timed, group.comm_s = True, 0.0
     ms, comm = [], []
     for i in range(S_FRAMES):
@@ -3013,11 +3011,7 @@ def shard_run(group, kind, inputs):
             out["single"] = dict(frame=i, blocks=blocks, weighted=n_w, **err)
             single = None
     group.timed = False
-    launches = dict(fused_integrate_rows=FI.launch_count,
-                    fused_integrate_rows_res1=FI.res1_launch_count,
-                    fused_integrate_points_rows=FIP.launch_count,
-                    fused_integrate_points_rows_res1=FIP.res1_launch_count,
-                    sample_image=SI.launch_count)
+    launches = launch_counts(*K1_NAMES[:2], *K3_NAMES, "sample_image")
     k = ("fused_integrate_rows" if rgbd else "fused_integrate_points_rows")
     assert launches[k] >= 1 and launches[k + "_res1"] >= 1, launches
     assert launches["sample_image"] == (1 if rgbd else 3), launches

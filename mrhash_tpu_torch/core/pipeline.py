@@ -19,7 +19,8 @@ from mrhash_tpu_torch import params as P
 from mrhash_tpu_torch.core.state import MapConfig, MapState
 from mrhash_tpu_torch.ops import camera as C
 from mrhash_tpu_torch.ops import integrate as I
-from mrhash_tpu_torch.utils.profiler import stage
+from mrhash_tpu_torch.utils.profiler import (COUNTS, SYNCS, host_bool,
+                                             host_list, pick, since, stage)
 
 
 def _coarsen(cfg: MapConfig, state: MapState, window, decide, gc_decision):
@@ -32,40 +33,47 @@ def _coarsen(cfg: MapConfig, state: MapState, window, decide, gc_decision):
     deviation D18), so starvation and GC run on the pre-coarsen window
     minus the freed entries, and this frame's coarse blocks starve and
     collect from the next frame on."""
-    if cfg.sdf_var_threshold <= 0.0 or state.frame == 0 or not bool(
+    if cfg.sdf_var_threshold <= 0.0 or state.frame == 0 or not host_bool(
             decide.any()):
         return None, window, gc_decision
     slots, bpos = window[:2]
     new_slots, new_mask, freed = I.coarsen_by_variance(
         cfg, state.table, state.pool, slots, bpos, decide)
     keep = ~freed
-    return ((new_slots, new_mask), tuple(t[keep] for t in window),
-            None if gc_decision is None else gc_decision[keep])
+    return ((new_slots, new_mask), tuple(pick(t, keep) for t in window),
+            None if gc_decision is None else pick(gc_decision, keep))
 
 
 def integrate_rgbd(cfg: MapConfig, state: MapState, cam: C.Camera,
                    depth_img, rgb_img):
     """Full RGB-D frame step, in place.  depth_img f32[H,W] metric depth,
     rgb_img u8[H,W,3], both on the state's device.  Returns (state, stats)
-    with the reference's stats keys, as Python ints."""
+    with the reference's stats keys and the frame's counters (_stats), as
+    Python ints."""
     table, pool = state.table, state.pool
+    syncs0 = COUNTS[SYNCS]
     num_steps = cfg.dda_steps(float(cfg.max_integration_distance))
 
     # each stage is a torch.profiler range while a profiler runs (rgbd.*;
-    # chip_profile.py --multires reads their host and device times)
+    # the benchmark's readers and chip_profile.py --multires read their
+    # host and device times)
     # --- allocation ---------------------------------------------------------
     with stage("rgbd.alloc"):
-        pc_depth = C.get_depth(cam, C.compute_cloud(cam, depth_img))
-        keys, valid = I.alloc_candidates_depth(cfg, cam, pc_depth, num_steps,
-                                               frame=state.frame)
-        I.alloc_blocks(cfg, table, keys, valid, state.frame)
+        with stage("rgbd.alloc.cloud"):
+            pc_depth = C.get_depth(cam, C.compute_cloud(cam, depth_img))
+        with stage("rgbd.alloc.candidates"):
+            keys, valid = I.alloc_candidates_depth(
+                cfg, cam, pc_depth, num_steps, frame=state.frame)
+        alloc = I.alloc_blocks(cfg, table, keys, valid, state.frame)
 
     # --- compaction + fused integration -------------------------------------
     with stage("rgbd.integrate"):
-        window = I.compact_active(cfg, table, cam)
+        with stage("rgbd.compact"):
+            window = I.compact_active(cfg, table, cam)
         count = int(window[0].numel())
-        aux = I.fused_integrate_depth(cfg, pool, cam, pc_depth, rgb_img,
-                                      *window[1:])
+        with stage("rgbd.K1"):
+            aux = I.fused_integrate_depth(cfg, pool, cam, pc_depth, rgb_img,
+                                          *window[1:])
 
     # --- variance-adaptive coarsening ---------------------------------------
     with stage("rgbd.coarsen"):
@@ -78,17 +86,20 @@ def integrate_rgbd(cfg: MapConfig, state: MapState, cam: C.Camera,
     # --- starvation + garbage collection ------------------------------------
     slots, bpos, bptr, bres = window
     n = cfg.n_frames_invalidate_voxels
+    freed = 0
     if n > 0:
         with stage("rgbd.starve_gc"):
             if state.frame > 0 and state.frame % n == 0:
                 I.starve_voxels(cfg, pool, cam, bpos, bptr, bres)
             # GC reads the kernel's flags from BEFORE the starve (reference
             # deviation D12)
-            I.garbage_collect_sweep(cfg, table, pool, slots, gc_decision)
+            freed = I.garbage_collect_sweep(cfg, table, pool, slots,
+                                            gc_decision)
 
     state.frame += 1
     with stage("rgbd.stats"):
-        return state, _stats(state, count, bres)
+        return state, _stats(state, count, bres, alloc, coarse, freed,
+                             syncs0)
 
 
 def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
@@ -109,10 +120,11 @@ def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
     every scan runs GC: on K3's flags on a projective scan without a
     starve, else on the decision read from the pool (gc_decide), so a
     starve scan collects on the post-starve weights as the reference's
-    does.  Returns (state, stats); a point-centric scan's stats also hold
-    the walk's visited voxels and their distinct blocks (visited_keys,
-    distinct_keys), and with GC on, gc_freed counts the blocks it freed."""
+    does.  Returns (state, stats) as integrate_rgbd's; a point-centric
+    scan's stats also hold the walk's visited voxels and their distinct
+    blocks (visited_keys, distinct_keys)."""
     table, pool = state.table, state.pool
+    syncs0 = COUNTS[SYNCS]
     mdist = float(cfg.max_integration_distance)
 
     # each stage is a torch.profiler range while a profiler runs (points.*;
@@ -121,7 +133,7 @@ def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
         keys, valid = I.alloc_candidates_points(
             cfg, cam, points, cfg.dda_steps(mdist), normals)
     with stage("points.alloc_blocks"):
-        I.alloc_blocks(cfg, table, keys, valid, state.frame)
+        alloc = I.alloc_blocks(cfg, table, keys, valid, state.frame)
 
     # no frustum filter: the scan sees all around (the reference's
     # compact_active without a camera)
@@ -142,9 +154,10 @@ def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
                   if cfg.sdf_var_threshold > 0.0 else None)
         gc_flags = None
     with stage("points.coarsen"):
-        _, window, gc_flags = _coarsen(cfg, state, window, decide,
-                                       gc_flags)
+        coarse, window, gc_flags = _coarsen(cfg, state, window, decide,
+                                            gc_flags)
     n = cfg.n_frames_invalidate_voxels
+    freed = 0
     if n > 0:
         slots, bpos, bptr, bres = window
         starve = state.frame > 0 and state.frame % n == 0
@@ -154,23 +167,36 @@ def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
         with stage("points.gc"):
             if gc_flags is None or starve:
                 gc_flags = I.gc_decide(cfg, cam, pool, bptr, bres)
-            walk["gc_freed"] = I.garbage_collect_sweep(cfg, table, pool,
-                                                       slots, gc_flags)
+            freed = I.garbage_collect_sweep(cfg, table, pool, slots,
+                                            gc_flags)
 
     state.frame += 1
     with stage("points.stats"):
-        stats = _stats(state, count, window[3])
+        stats = _stats(state, count, window[3], alloc, coarse, freed,
+                       syncs0)
     stats.update(walk)
     return state, stats
 
 
-def _stats(state: MapState, count: int, bres):
+def _stats(state: MapState, count: int, bres, alloc=(0, 0), coarse=None,
+           gc_freed: int = 0, syncs0: int | None = None):
     """The reference's stats keys, as Python ints (one device sync);
     res0_blocks counts the res-0 entries of the window that stayed after
-    coarsening."""
+    coarsening.  Then the frame's counters, host ints the step already
+    has: alloc_keys and alloc_new, the deduped keys submitted to insert
+    and the blocks it drew (I.alloc_blocks' `alloc`); coarsened, the
+    res-0 entries coarsening served (`coarse`, None when it did not run);
+    gc_freed, the blocks GC freed (0 with GC off); host_syncs, the sync
+    sites passed since the reading syncs0 of COUNTS (utils/profiler.py),
+    this one's included (this one alone without syncs0)."""
     table = state.table
-    total, res0 = torch.stack([(table.ptr != P.FREE_ENTRY).sum(),
-                               (bres == 0).sum()]).tolist()
+    if syncs0 is None:
+        syncs0 = COUNTS[SYNCS]
+    total, res0 = host_list(torch.stack([(table.ptr != P.FREE_ENTRY).sum(),
+                                         (bres == 0).sum()]))
     return dict(occupied_blocks=count, occupied_total=total,
                 high_free=table.high_count, low_free=table.low_count,
-                frame=state.frame, unserved_blocks=0, res0_blocks=res0)
+                frame=state.frame, unserved_blocks=0, res0_blocks=res0,
+                alloc_keys=alloc[0], alloc_new=alloc[1],
+                coarsened=0 if coarse is None else int(coarse[0].shape[0]),
+                gc_freed=gc_freed, host_syncs=since(syncs0))

@@ -18,6 +18,7 @@ import torch
 
 from mrhash_tpu_torch import params as P
 from mrhash_tpu_torch.ops import hashtable as H
+from mrhash_tpu_torch.utils.profiler import host_list
 
 LANES = P.TOTAL_SDF_BLOCK_SIZE
 
@@ -74,9 +75,9 @@ def check_windows(ptr, res, n_rows: int, other_bad=None) -> int:
     bad = (((res != 0) & (res != 1)) | (p < 0) | (p + nvox > n_rows * LANES)
            | (p % nvox != 0)).any()
     other = other_bad[1].any() if other_bad else torch.zeros_like(bad)
-    n_bad, n_other, n1 = torch.stack([bad.to(torch.int64),
-                                      other.to(torch.int64),
-                                      (res == 1).sum()]).tolist()
+    n_bad, n_other, n1 = host_list(torch.stack([bad.to(torch.int64),
+                                                other.to(torch.int64),
+                                                (res == 1).sum()]))
     if n_bad:
         raise ValueError(f"ptr/res: a window outside a pool of {n_rows} "
                          "rows, misaligned, or a resolution other than 0/1")

@@ -31,14 +31,16 @@ C) take less; see the source.
 `blend_forward` and `blend_backward` take their plain PyTorch twins
 (`blend_forward_ref`, `blend_backward_ref`, K-step loops over [T,256]
 tensors in the reference's order) for CPU tensors only; for CUDA tensors
-they launch the kernel or raise.  `launch_count` counts kernel launches,
-one entry per kernel.
+they launch the kernel or raise.  Each launch counts in
+utils/profiler.COUNTS under the kernel's name ("blend_forward",
+"blend_backward").
 """
 from __future__ import annotations
 
 import torch
 
 from mrhash_tpu_torch.ops import cuda_lib
+from mrhash_tpu_torch.utils.profiler import COUNTS
 
 BLOCK = 16
 PIX = BLOCK * BLOCK
@@ -49,8 +51,6 @@ WORDS = PIX // 32               # mask words per (tile, k): one per warp
 # fl(1 - fl(1/255)) in f32: a pixel whose fl(T * EXIT_FACTOR) < ALPHA_MIN
 # can never blend again (K4's early exit)
 EXIT_FACTOR = float(torch.tensor(1.0) - torch.tensor(ALPHA_THRESHOLD))
-
-launch_count = {"blend_forward": 0, "blend_backward": 0}
 
 
 def pixel_coords(n_tiles, grid_x, device):
@@ -219,7 +219,7 @@ def _launch_forward(attr, valid, grid_x):
                                       p(tfin), p(cfin), p(mask),
                                       cuda_lib.stream_of(attr))
     cuda_lib.check(rc, "blend_forward")
-    launch_count["blend_forward"] += 1
+    COUNTS["blend_forward"] += 1
     return tfin, cfin, mask
 
 
@@ -261,7 +261,7 @@ def _launch_backward(attr, valid, grid_x, Tfin, mask, gT, gC):
                                        p(Tfin), p(mask), p(gT), p(gC),
                                        p(gout), cuda_lib.stream_of(attr))
     cuda_lib.check(rc, "blend_backward")
-    launch_count["blend_backward"] += 1
+    COUNTS["blend_backward"] += 1
     return gout
 
 

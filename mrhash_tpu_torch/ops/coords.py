@@ -11,6 +11,7 @@ import functools
 import torch
 
 from mrhash_tpu_torch import params as P
+from mrhash_tpu_torch.utils.profiler import upload
 
 
 @functools.lru_cache(maxsize=None)
@@ -22,7 +23,7 @@ def on_device(values, device: torch.device):
     and on a card a quotient by a Python number is a product with its
     reciprocal, an ulp off the CPU's and the reference's at exact voxel
     boundaries (PORT_NOTES.md P55)."""
-    return torch.tensor(values, dtype=torch.float32, device=device)
+    return upload(values, device, torch.float32)
 
 
 def _factor(v):

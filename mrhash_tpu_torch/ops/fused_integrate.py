@@ -26,8 +26,9 @@ move the fewest bytes.
 
 `fused_integrate_rows` takes the plain PyTorch twin
 `fused_integrate_rows_ref` for CPU tensors only; for CUDA tensors it
-launches the kernel or raises.  `launch_count` counts launches of the res-0
-kernel, `res1_launch_count` those of the res-1 kernel.
+launches the kernel or raises.  utils/profiler.COUNTS counts launches of
+the res-0 kernel under "fused_integrate_rows", those of the res-1 kernel
+under "fused_integrate_rows_res1".
 """
 from __future__ import annotations
 
@@ -36,13 +37,11 @@ import torch
 from mrhash_tpu_torch.core.state import (check_windows, put_windows,
                                          window_voxels)
 from mrhash_tpu_torch.ops import cuda_lib
+from mrhash_tpu_torch.utils.profiler import COUNTS, upload
 
 LANES = 512
 CAM_VEC_LEN = 32
 FAR_F32 = 3e38
-
-launch_count = 0
-res1_launch_count = 0
 
 
 def make_cam_vec(cam, vvs, trunc0, trunc1, max_int, w_sample, w_max):
@@ -53,9 +52,9 @@ def make_cam_vec(cam, vvs, trunc0, trunc1, max_int, w_sample, w_max):
     dev = cam.rot.device
     head = torch.stack([cam.fx, cam.fy, cam.cx, cam.cy, cam.min_depth,
                         cam.max_depth])
-    tail = torch.tensor([vvs, trunc0, trunc1, max_int, float(w_sample),
-                         float(w_max), float(cam.rows), float(cam.cols)],
-                        dtype=torch.float32, device=dev)
+    tail = upload([vvs, trunc0, trunc1, max_int, float(w_sample),
+                   float(w_max), float(cam.rows), float(cam.cols)], dev,
+                  torch.float32)
     pad = torch.zeros(CAM_VEC_LEN - 26, dtype=torch.float32, device=dev)
     return torch.cat([head, cam.rot.reshape(-1), cam.trans, tail, pad])
 
@@ -208,8 +207,5 @@ def _launch(pool, depth_img, rgb_img, cam_vec, bpos, ptr, entries, kind,
             p(pool.sumsq), p(pool.weight), p(pool.rgbp), p(flags),
             cuda_lib.stream_of(depth_img))
     cuda_lib.check(rc, "fused_integrate_rows")
-    global launch_count, res1_launch_count
-    if kind == 0:
-        launch_count += 1
-    else:
-        res1_launch_count += 1
+    COUNTS["fused_integrate_rows_res1" if kind
+           else "fused_integrate_rows"] += 1

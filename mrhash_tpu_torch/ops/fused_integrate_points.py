@@ -25,8 +25,9 @@ pixel.
 
 `fused_integrate_points_rows` takes the plain PyTorch twin
 `fused_integrate_points_rows_ref` for CPU tensors only; for CUDA tensors it
-launches the kernel or raises.  `launch_count` counts launches that served
-res-0 entries, `res1_launch_count` launches that served res-1 entries (a
+launches the kernel or raises.  utils/profiler.COUNTS counts launches
+that served res-0 entries under "fused_integrate_points_rows", launches
+that served res-1 entries under "fused_integrate_points_rows_res1" (a
 launch over a mixed window counts in both).
 """
 from __future__ import annotations
@@ -38,13 +39,11 @@ import torch
 from mrhash_tpu_torch.core.state import (check_windows, put_windows,
                                          window_voxels)
 from mrhash_tpu_torch.ops import cuda_lib
+from mrhash_tpu_torch.utils.profiler import COUNTS
 
 LANES = 512
 N_FLAGS = 4
 FAR_F32 = 3e38
-
-launch_count = 0
-res1_launch_count = 0
 
 
 def fused_integrate_points_rows_ref(pool, img, pix, r_vox, ptr, res, consts):
@@ -157,6 +156,5 @@ def _launch(pool, img, pix, r_vox, ptr, entries, n0, consts, flags):
             p(pool.sdf), p(pool.sumsq), p(pool.weight), p(flags),
             cuda_lib.stream_of(img))
     cuda_lib.check(rc, "fused_integrate_points_rows")
-    global launch_count, res1_launch_count
-    launch_count += int(n0 > 0)
-    res1_launch_count += int(n1 > 0)
+    COUNTS["fused_integrate_points_rows"] += int(n0 > 0)
+    COUNTS["fused_integrate_points_rows_res1"] += int(n1 > 0)

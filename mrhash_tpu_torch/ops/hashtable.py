@@ -24,6 +24,8 @@ import dataclasses
 import torch
 
 from mrhash_tpu_torch import params as P
+from mrhash_tpu_torch.utils.profiler import (host_int, nonzero, pick, put,
+                                             unique_rows)
 
 FREE = P.FREE_ENTRY
 MASK32 = 0xFFFFFFFF
@@ -140,7 +142,7 @@ def lookup(table: HashTable, keys):
     exact = found & (table.pos[slot] == keys).all(dim=-1)
 
     # fingerprint-collision suspects: exact compare over the whole window
-    sidx = torch.nonzero(found & ~exact).flatten()
+    sidx = nonzero(found & ~exact)
     if sidx.numel():
         s_slots = slots[sidx]
         s_match = ((table.ptr[s_slots] != FREE)
@@ -177,10 +179,10 @@ def lookup_dedup(table: HashTable, keys, valid, slot_map):
     wslot = torch.zeros(M, dtype=torch.int64, device=dev)
     lane0 = torch.zeros(M, dtype=torch.int32, device=dev)
     res = torch.zeros(M, dtype=torch.int32, device=dev)
-    vidx = torch.nonzero(valid).flatten()
+    vidx = nonzero(valid)
     if vidx.numel() == 0:
         return found, wslot, lane0, res, 0
-    uniq, inv = torch.unique(keys[vidx], dim=0, return_inverse=True)
+    uniq, inv = unique_rows(keys[vidx])
     f, s, p, r = lookup(table, uniq)
     w = torch.where(f, slot_map[s.clamp(min=0)], -1)
     f = f & (w >= 0)
@@ -198,7 +200,7 @@ def _heap_draw(heap, count: int, want):
     got = want & (rank < count)
     idx = torch.clamp(count - 1 - rank, 0, heap.shape[0] - 1)
     ids = torch.where(got, heap[idx], torch.full_like(heap[idx], -1))
-    return ids, got, count - int(got.sum())
+    return ids, got, count - host_int(got.sum())
 
 
 def _heap_push(heap, count: int, ids):
@@ -229,7 +231,7 @@ def insert(table: HashTable, keys, res):
     new_slot = torch.full((U,), -1, dtype=torch.int64, device=dev)
     new_ptr = torch.full((U,), FREE, dtype=torch.int32, device=dev)
 
-    pidx = torch.nonzero(~found).flatten()
+    pidx = nonzero(~found)
     n = pidx.numel()
     if n:
         pkeys, pres = keys[pidx], res[pidx]
@@ -251,7 +253,7 @@ def insert(table: HashTable, keys, res):
         sel = _first_true(cumfree == want_pos[:, None])
         slot_p = slots_all.gather(1, sel[:, None])[:, 0]
         prop = torch.full((C,), -1, dtype=torch.int64, device=dev)
-        prop.scatter_reduce_(0, slot_p[has], ar[has], "amax")
+        prop.scatter_reduce_(0, pick(slot_p, has), pick(ar, has), "amax")
         winner = has & (prop[slot_p] == ar)
 
         ids_h, got_h, table.high_count = _heap_draw(
@@ -261,11 +263,11 @@ def insert(table: HashTable, keys, res):
         pnew = got_h | got_l
         pptr = torch.where(got_h, ids_h * P.TOTAL_SDF_BLOCK_SIZE,
                            ids_l * P.TOTAL_LOW_BLOCK_SIZE)
-        d = slot_p[pnew]
-        table.pos[d] = pkeys[pnew]
-        table.ptr[d] = pptr[pnew]
-        table.res[d] = pres[pnew].to(torch.int32)
-        table.fp[d] = fingerprint(pkeys[pnew])
+        d = pick(slot_p, pnew)
+        table.pos[d] = pick(pkeys, pnew)
+        table.ptr[d] = pick(pptr, pnew)
+        table.res[d] = pick(pres, pnew).to(torch.int32)
+        table.fp[d] = fingerprint(pick(pkeys, pnew))
         new[pidx] = pnew
         new_slot[pidx] = torch.where(pnew, slot_p, torch.full_like(slot_p, -1))
         new_ptr[pidx] = torch.where(pnew, pptr, torch.full_like(pptr, FREE))
@@ -284,16 +286,16 @@ def free_slots(table: HashTable, slots):
     slots = slots.to(torch.int64)
     ptrs = table.ptr[slots]
     occ = ptrs != FREE
-    slots, ptrs, res = slots[occ], ptrs[occ], table.res[slots][occ]
+    slots, ptrs, res = (pick(slots, occ), pick(ptrs, occ),
+                        pick(table.res[slots], occ))
     hi = res == 0
     table.high_count = _heap_push(table.heap_high, table.high_count,
-                                  ptrs[hi] // P.TOTAL_SDF_BLOCK_SIZE)
+                                  pick(ptrs, hi) // P.TOTAL_SDF_BLOCK_SIZE)
     table.low_count = _heap_push(table.heap_low, table.low_count,
-                                 ptrs[~hi] // P.TOTAL_LOW_BLOCK_SIZE)
-    table.ptr[slots] = FREE
-    table.pos[slots] = 0
-    table.res[slots] = 0
-    table.fp[slots] = 0
+                                 pick(ptrs, ~hi) // P.TOTAL_LOW_BLOCK_SIZE)
+    put(table.ptr, slots, FREE)
+    for field in (table.pos, table.res, table.fp):
+        put(field, slots, 0)
     return ptrs, res
 
 
@@ -312,8 +314,9 @@ def split_high_blocks(table: HashTable, n_split: int):
 
 
 def compact_indices(mask, k: int):
-    """Positions (int64) of the first k set entries of `mask`."""
-    return torch.nonzero(mask).flatten()[:k]
+    """Positions (int64) of the first k set entries of `mask` (one
+    counted sync)."""
+    return nonzero(mask)[:k]
 
 
 def compact(table: HashTable, extra_mask=None, max_active: int = 0):

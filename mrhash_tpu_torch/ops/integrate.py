@@ -28,7 +28,8 @@ from mrhash_tpu_torch.ops import fused_integrate as FI
 from mrhash_tpu_torch.ops import fused_integrate_points as FIP
 from mrhash_tpu_torch.ops import hashtable as H
 from mrhash_tpu_torch.ops import sample_image as SI
-from mrhash_tpu_torch.utils.profiler import stage
+from mrhash_tpu_torch.utils.profiler import (host_int, nonzero, pick, put,
+                                             stage)
 
 INF = float("inf")
 _SALT0 = 2654435761  # Knuth multiplicative constant
@@ -232,7 +233,7 @@ def dedup_candidates(keys, valid, frame_salt: int, scratch_size: int,
     h = H._avalanche(h ^ H.mul32(z, P.P0))
     cell = h % int(scratch_size)
 
-    vidx = torch.nonzero(valid).flatten()
+    vidx = nonzero(valid)
     scratch = torch.full((scratch_size,), -1, dtype=torch.int64,
                          device=keys.device)
     scratch.scatter_reduce_(0, cell[vidx], vidx, "amax")
@@ -243,13 +244,21 @@ def dedup_candidates(keys, valid, frame_salt: int, scratch_size: int,
 def alloc_blocks(cfg: MapConfig, table: H.HashTable, keys, valid,
                  frame: int):
     """allocBlocks (voxel_data_structures.cu:873-922): alloc_rounds salted
-    dedup + insert passes, updating `table` in place."""
+    dedup + insert passes, updating `table` in place.  Returns host ints
+    (submitted, inserted): the deduped keys handed to insert over the
+    rounds, and the blocks drawn from the heaps for them."""
     U = cfg.max_alloc_per_frame
+    free0 = table.high_count + table.low_count
+    submitted = 0
     for i in range(cfg.alloc_rounds):
-        ukeys = dedup_candidates(keys, valid, frame * cfg.alloc_rounds + i,
-                                 U * cfg.dedup_scratch_factor, U)
-        H.insert(table, ukeys, torch.zeros(ukeys.shape[0], dtype=torch.int32,
-                                           device=ukeys.device))
+        with stage("alloc.dedup"):
+            ukeys = dedup_candidates(keys, valid, frame * cfg.alloc_rounds + i,
+                                     U * cfg.dedup_scratch_factor, U)
+        submitted += ukeys.shape[0]
+        with stage("alloc.insert"):
+            H.insert(table, ukeys, torch.zeros(
+                ukeys.shape[0], dtype=torch.int32, device=ukeys.device))
+    return submitted, free0 - table.high_count - table.low_count
 
 
 # ---------------------------------------------------------------------------
@@ -621,7 +630,7 @@ def integrate_points_sdf(cfg: MapConfig, table: H.HashTable, pool: VoxelPool,
     # (weight, weight * sdf) summed per window voxel over the contributions
     # alone, in walk order (k-major): an index per non-contribution would
     # put them all on one address, whose atomics serialize on a card
-    cidx = torch.nonzero(contrib.reshape(-1)).flatten()
+    cidx = nonzero(contrib.reshape(-1))
     w_up = float(cfg.integration_weight_sample)
     vals = torch.stack([torch.full_like(sdf, w_up), sdf * w_up], dim=-1)
     acc = torch.zeros((A * LANES, 2), dtype=torch.float32, device=dev)
@@ -647,7 +656,7 @@ def integrate_points_sdf(cfg: MapConfig, table: H.HashTable, pool: VoxelPool,
     for field, new, old in ((pool.sdf, m_sdf, sdf0), (pool.weight, m_w, w0),
                             (pool.sumsq, m_ssq, ssq0)):
         put_windows(field, vidx, valid, torch.where(hit, new, old))
-    return dict(visited=int(visit.sum()), distinct=n_distinct)
+    return dict(visited=host_int(visit.sum()), distinct=n_distinct)
 
 
 # ---------------------------------------------------------------------------
@@ -696,7 +705,7 @@ def apply_starve(pool: VoxelPool, bptr, bres, starved):
     """Decrement the weights of the starved voxels (window-layout mask), in
     place."""
     vidx, _ = window_voxels(bptr, bres)
-    dst = vidx[starved]
+    dst = pick(vidx, starved)
     w = pool.weight.view(-1)
     w[dst] = torch.clamp(w[dst] - 1, min=0)
 
@@ -714,7 +723,7 @@ def _clear_blocks(pool: VoxelPool, bptr, bres):
     block's 64 lanes (their siblings' windows in the same row stay)."""
     vidx, _ = window_voxels(bptr, bres)
     for f in VoxelPool.FIELDS:
-        getattr(pool, f).view(-1)[vidx] = 0
+        put(getattr(pool, f).view(-1), vidx, 0)
 
 
 def gc_decide(cfg: MapConfig, cam: C.Camera, pool: VoxelPool, bptr, bres):
@@ -794,7 +803,7 @@ def coarsen_by_variance(cfg: MapConfig, table: H.HashTable, pool: VoxelPool,
     _clear_blocks(pool, ptrs, fres)
     freed = torch.zeros(decide.shape[0], dtype=torch.bool,
                         device=decide.device)
-    freed[sel] = True
+    put(freed, sel, True)
     if table.low_count < sel.numel():
         H.split_high_blocks(table, int(cfg.low_split_chunk))
     info = H.insert(table, bpos[sel], torch.ones(
@@ -802,8 +811,8 @@ def coarsen_by_variance(cfg: MapConfig, table: H.HashTable, pool: VoxelPool,
     new = info["was_new"]
     if fine is not None:
         _downsample_into_coarse(cfg, table, pool,
-                                {f: v[new] for f, v in fine.items()},
-                                info["slot"][new])
+                                {f: pick(v, new) for f, v in fine.items()},
+                                pick(info["slot"], new))
     return info["slot"], new, freed
 
 
@@ -874,6 +883,6 @@ def reintegrate_blocks(cfg: MapConfig, table: H.HashTable, pool: VoxelPool,
     the current frame into the freshly coarsened blocks, through K1's res-1
     path (the reference samples through its image sampler, B5; both sample
     each voxel's own pixel, PORT_NOTES.md P30)."""
-    s = new_slots[new_mask]
+    s = pick(new_slots, new_mask)
     fused_integrate_depth(cfg, pool, cam, pc_depth, rgb_img, table.pos[s],
                           table.ptr[s], table.res[s])

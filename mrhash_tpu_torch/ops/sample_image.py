@@ -16,7 +16,8 @@ and hit L2.
 
 `sample_image` takes the plain PyTorch twin `sample_image_ref` for CPU
 tensors only; for CUDA tensors it launches the kernel or raises.
-`launch_count` counts kernel launches.
+utils/profiler.COUNTS counts its launches under "sample_image", and
+K6's under "sample_image5".
 
 Kernel K6, `sample_image5`, is the counterpart of
 mrhash_tpu/ops/pallas_kernels.py::sample_image_pallas_v2 (the Pallas kernel
@@ -25,20 +26,17 @@ contract: a bf16 5-channel image (depth hi/lo split, r, g, b), per block an
 8- and 128-aligned patch origin, per lane patch-local (row, col).  Its
 one-hot bf16 contraction selects one element, so it is a masked gather
 (csrc/sample_image.cu); channels 5-7 are 0 (PORT_NOTES.md P41).
-`launch_count5` counts its launches.
 """
 from __future__ import annotations
 
 import torch
 
 from mrhash_tpu_torch.ops import cuda_lib
+from mrhash_tpu_torch.utils.profiler import COUNTS, host_bool
 
 LANES = 512
 PATCH_H, PATCH_W = 32, 256      # K6's patch (pallas_kernels.PATCH_H2, PATCH_W)
 N_CH5, OUT_CH5 = 5, 8
-
-launch_count = 0
-launch_count5 = 0
 
 
 def sample_image_ref(img, row, col, ok):
@@ -63,7 +61,7 @@ def sample_image(img, row, col, ok):
     e(col, "col", torch.int32, (A, LANES), dev)
     e(ok, "ok", torch.bool, (A, LANES), dev)
     off = (row < 0) | (row >= H_) | (col < 0) | (col >= W_)
-    if bool((ok & off).any()):
+    if host_bool((ok & off).any()):
         raise ValueError("row/col: an ok lane lies outside the image")
     if dev.type == "cpu":
         return sample_image_ref(img, row, col, ok)
@@ -87,8 +85,7 @@ def _launch(img, row, col, ok):
         rc = lib.mrhash_sample_image(p(img), H_, W_, p(row), p(col), p(ok),
                                      A, p(out), cuda_lib.stream_of(img))
     cuda_lib.check(rc, "sample_image")
-    global launch_count
-    launch_count += 1
+    COUNTS["sample_image"] += 1
     return out
 
 
@@ -149,6 +146,5 @@ def _launch5(img5, r0, c0, lr, lc):
                                       p(lc), A, p(out),
                                       cuda_lib.stream_of(img5))
     cuda_lib.check(rc, "sample_image5")
-    global launch_count5
-    launch_count5 += 1
+    COUNTS["sample_image5"] += 1
     return out

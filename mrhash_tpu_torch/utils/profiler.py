@@ -5,14 +5,90 @@ mirroring the text-file format of the reference's Profiler / CUDAProfiler
 host wall clock around a step that ends in a device sync.
 
 stage() names a step of the frame for torch.profiler.
+
+COUNTS is the process's one registry of event counts: the kernels'
+launches (under their wrappers' names, e.g. "fused_integrate_rows") and
+"host_syncs", the host's reads of device values that the frame step
+makes.  Each sync site of the frame step goes through host_int,
+host_bool, host_list, nonzero, pick, put, upload or unique_rows, which
+count the syncs a call makes on a card whatever the device (one, or
+unique_rows' six), so a count is a property of the code path: on a card
+each is one stream synchronization, on the CPU none.  A caller
+takes a count as the difference of two readings (since()).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import time
 
 import torch
 from torch.profiler import record_function
+
+COUNTS: collections.Counter = collections.Counter()
+SYNCS = "host_syncs"
+# torch.unique(dim=0, return_inverse=True)'s thrust steps on a card
+# (torch 2.11, CUDA 12.8, H100; tests/test_torch_tracing.py's gpu case)
+UNIQUE_ROWS_SYNCS = 6
+
+
+def since(mark: int, name: str = SYNCS) -> int:
+    """COUNTS[name] less an earlier reading `mark`."""
+    return COUNTS[name] - mark
+
+
+def host_int(t) -> int:
+    """int(t) of a one-element tensor: one counted sync."""
+    COUNTS[SYNCS] += 1
+    return int(t)
+
+
+def host_bool(t) -> bool:
+    """bool(t) of a one-element tensor: one counted sync."""
+    COUNTS[SYNCS] += 1
+    return bool(t)
+
+
+def host_list(t) -> list:
+    """t.tolist(): one counted sync."""
+    COUNTS[SYNCS] += 1
+    return t.tolist()
+
+
+def nonzero(mask):
+    """Positions (int64) of the set entries of `mask`, flat: the count
+    reaches the host, one counted sync."""
+    COUNTS[SYNCS] += 1
+    return torch.nonzero(mask).flatten()
+
+
+def pick(t, mask):
+    """t[mask] for a bool mask (a nonzero underneath): one counted sync."""
+    COUNTS[SYNCS] += 1
+    return t[mask]
+
+
+def put(t, index, value):
+    """t[index] = value for a Python number: the number goes from host
+    memory to t's device, one counted sync."""
+    COUNTS[SYNCS] += 1
+    t[index] = value
+
+
+def unique_rows(t):
+    """torch.unique(t, dim=0, return_inverse=True): UNIQUE_ROWS_SYNCS
+    counted syncs."""
+    COUNTS[SYNCS] += UNIQUE_ROWS_SYNCS
+    return torch.unique(t, dim=0, return_inverse=True)
+
+
+def upload(a, device, dtype=None):
+    """A number, tuple, array or tensor as a tensor on `device`
+    (torch.as_tensor): from host memory a copy from pageable memory, one
+    counted sync; a tensor already on an accelerator is not counted."""
+    if not (torch.is_tensor(a) and a.device.type != "cpu"):
+        COUNTS[SYNCS] += 1
+    return torch.as_tensor(a, dtype=dtype, device=device)
 
 
 def stage(name: str):
@@ -41,10 +117,6 @@ class Profiler:
         yield
         self._events.append((time.perf_counter() - t0) * 1e3)
 
-    def add_ms(self, ms: float):
-        if self.enabled:
-            self._events.append(ms)
-
     def write(self, num_elements: int = 0):
         """Flush accumulated events as one line (CUDAProfiler::write)."""
         if not self.enabled or not self._events:
@@ -57,10 +129,6 @@ class Profiler:
         self._fh.write(f"{elapsed} {n} {elapsed / n} {num_elements}\n")
         self._fh.flush()
         self._events = []
-
-    @property
-    def last_total_ms(self):
-        return sum(self._events)
 
     def close(self):
         if self._fh is not None:

@@ -20,6 +20,7 @@ from mrhash_tpu_torch.core.state import MapConfig, make_state, pack_rgb
 from mrhash_tpu_torch.ops import camera as C
 from mrhash_tpu_torch.ops import fused_integrate as FI
 from mrhash_tpu_torch.ops import integrate as I
+from mrhash_tpu_torch.utils.profiler import COUNTS
 
 torch.set_num_threads(1)
 
@@ -230,14 +231,14 @@ def test_kernel_matches_twin_on_card(cuda):
                               cfg.sdf_truncation_scale, 5.0, 1, 255)
     pk = make_state(cfg.num_blocks, device=cuda).pool
     pt = make_state(cfg.num_blocks, device=cuda).pool
-    n0 = FI.launch_count
+    n0 = COUNTS["fused_integrate_rows"]
     for d in depths:
         dd = torch.from_numpy(d).to(cuda)
         fk = FI.fused_integrate_rows(pk, dd, rgbp, cam_vec, bpos, bptr, bres)
         ft = FI.fused_integrate_rows_ref(pt, dd, rgbp, cam_vec, bpos, bptr,
                                          bres)
     torch.cuda.synchronize()
-    assert FI.launch_count == n0 + N_FRAMES
+    assert COUNTS["fused_integrate_rows"] == n0 + N_FRAMES
     for f in ("weight", "rgbp"):
         assert torch.equal(getattr(pk, f), getattr(pt, f)), f
     assert int((pk.weight > 0).sum()) > 5000

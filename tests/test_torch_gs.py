@@ -49,6 +49,7 @@ from mrhash_tpu_torch.gs import losses as L
 from mrhash_tpu_torch.gs import rasterizer as R
 from mrhash_tpu_torch.gs.model import GaussianModel, OptimizationParams
 from mrhash_tpu_torch.gs.quadtree import build_qtree
+from mrhash_tpu_torch.utils.profiler import COUNTS
 
 NAMES = ("xyz", "scaling", "rotation", "opacity", "f_dc", "f_rest")
 
@@ -766,7 +767,7 @@ def test_kernels_match_twins_on_card(cuda, K):
     attr, valid, _ = blend_inputs(K, T, K, grid_x)
     a = torch.from_numpy(attr).to(cuda)
     v = torch.from_numpy(valid).to(cuda)
-    n4, n5 = B.launch_count["blend_forward"], B.launch_count["blend_backward"]
+    n4, n5 = COUNTS["blend_forward"], COUNTS["blend_backward"]
     Tk, Ck, mk = B.blend_forward(a, v, grid_x)
     Tt, Ct, mt = B.blend_forward_ref(a, v, grid_x)
     rng = np.random.default_rng(1)
@@ -777,8 +778,8 @@ def test_kernels_match_twins_on_card(cuda, K):
     gk = B.blend_backward(a, v, grid_x, Tk, mk, gT, gC)
     gt = B.blend_backward_ref(a, grid_x, Tk, mk, gT, gC)
     torch.cuda.synchronize()
-    assert B.launch_count["blend_forward"] == n4 + 1
-    assert B.launch_count["blend_backward"] == n5 + 1
+    assert COUNTS["blend_forward"] == n4 + 1
+    assert COUNTS["blend_backward"] == n5 + 1
     assert torch.equal(mk, mt)
     torch.testing.assert_close(Tk, Tt, atol=1e-6, rtol=0)
     torch.testing.assert_close(Ck, Ct, atol=1e-6, rtol=0)

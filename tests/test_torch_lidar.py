@@ -42,6 +42,7 @@ from mrhash_tpu_torch.geowrapper import GeoWrapper
 from mrhash_tpu_torch.ops import camera as C
 from mrhash_tpu_torch.ops import fused_integrate_points as FIP
 from mrhash_tpu_torch.ops import integrate as I
+from mrhash_tpu_torch.utils.profiler import COUNTS
 
 torch.set_num_threads(1)
 
@@ -501,7 +502,7 @@ def test_kernel_matches_twin_on_card(cuda):
     pools = [make_state(cfg.num_blocks, cfg.num_buckets, cuda).pool
              for _ in range(2)]
     st = make_state(cfg.num_blocks, cfg.num_buckets, cuda)
-    n0 = FIP.launch_count
+    n0 = COUNTS["fused_integrate_points_rows"]
     for t, pts in _frames():
         cam = _port_cam(t, cuda)
         points = torch.from_numpy(pts).to(cuda)
@@ -515,7 +516,7 @@ def test_kernel_matches_twin_on_card(cuda):
         fk = FIP.fused_integrate_points_rows(pools[0], *operands)
         ft = FIP.fused_integrate_points_rows_ref(pools[1], *operands)
     torch.cuda.synchronize()
-    assert FIP.launch_count == n0 + N_FRAMES
+    assert COUNTS["fused_integrate_points_rows"] == n0 + N_FRAMES
     for f in ("sdf", "sumsq", "weight"):
         assert torch.equal(getattr(pools[0], f), getattr(pools[1], f)), f
     assert int((pools[0].weight > 0).sum()) > 20000

@@ -54,6 +54,7 @@ from mrhash_tpu_torch.ops import coords as X
 from mrhash_tpu_torch.ops import hashtable as H
 from mrhash_tpu_torch.ops import integrate as I
 from mrhash_tpu_torch.ops import sample_image as SI
+from mrhash_tpu_torch.utils.profiler import COUNTS
 from test_torch_lidar import (CFG, COLS, MAX_D, ROWS, _frames, _jcam,
                               _normals, _port_cam, _rows_by_key)
 from test_torch_streaming import _reference_state
@@ -444,9 +445,9 @@ def test_point_centric_slice_and_k2_on_card():
                          torch.where(ok, z, I.FAR).reshape(-1), "amin")
     zimg = torch.zeros((2, ROWS, COLS), device=cuda)
     zimg[0] = zbuf[:HW].reshape(ROWS, COLS)
-    n0 = SI.launch_count
+    n0 = COUNTS["sample_image"]
     sk = SI.sample_image(zimg, row.contiguous(), col.contiguous(), ok)
     st_ = SI.sample_image_ref(zimg, row.contiguous(), col.contiguous(), ok)
-    assert SI.launch_count == n0 + 1
+    assert COUNTS["sample_image"] == n0 + 1
     assert torch.equal(sk, st_)
     assert int((ok & (z == sk[:, 0, :])).sum()) > 1000

@@ -41,6 +41,7 @@ from mrhash_tpu_torch.ops import fused_integrate as FI
 from mrhash_tpu_torch.ops import fused_integrate_points as FIP
 from mrhash_tpu_torch.ops import hashtable as H
 from mrhash_tpu_torch.ops import integrate as I
+from mrhash_tpu_torch.utils.profiler import COUNTS
 
 torch.set_num_threads(1)
 
@@ -764,13 +765,15 @@ def test_k1_res1_matches_twin_on_card(cuda):
                               cfg.sdf_truncation_scale, 5.0, 1, 255)
     rgbp = pack_rgb(rgb_d).contiguous()
     pk, pt = _clone_pool(st.pool), _clone_pool(st.pool)
-    n0, n1 = FI.launch_count, FI.res1_launch_count
+    n0, n1 = (COUNTS["fused_integrate_rows"],
+              COUNTS["fused_integrate_rows_res1"])
     fk = FI.fused_integrate_rows(pk, pc_depth, rgbp, cam_vec, bpos, bptr,
                                  bres)
     ft = FI.fused_integrate_rows_ref(pt, pc_depth, rgbp, cam_vec, bpos, bptr,
                                      bres)
     torch.cuda.synchronize()
-    assert (FI.launch_count, FI.res1_launch_count) == (n0 + 1, n1 + 1)
+    assert (COUNTS["fused_integrate_rows"],
+            COUNTS["fused_integrate_rows_res1"]) == (n0 + 1, n1 + 1)
     for f in ("weight", "rgbp"):
         assert torch.equal(getattr(pk, f), getattr(pt, f)), f
     assert int((pk.weight != st.pool.weight).sum()) > 1000
@@ -806,13 +809,13 @@ def test_k1_res0_entries_of_mixed_window_on_card(cuda):
     rgbp = pack_rgb(rgb_d).contiguous()
     pk, pt = _clone_pool(st.pool), _clone_pool(st.pool)
     fk = torch.full((bpos.shape[0], 4), float("nan"), device=cuda)
-    n0 = FI.launch_count
+    n0 = COUNTS["fused_integrate_rows"]
     FI._launch(pk, pc_depth, rgbp, cam_vec, bpos, bptr, entries, 0, fk)
     ft = FI.fused_integrate_rows_ref(pt, pc_depth, rgbp, cam_vec,
                                      bpos[entries], bptr[entries],
                                      bres[entries])
     torch.cuda.synchronize()
-    assert FI.launch_count == n0 + 1
+    assert COUNTS["fused_integrate_rows"] == n0 + 1
     for f in ("weight", "rgbp"):
         assert torch.equal(getattr(pk, f), getattr(pt, f)), f
     assert int((pk.weight != st.pool.weight).sum()) > 1000
@@ -839,11 +842,11 @@ def test_k3_res1_matches_twin_on_card(cuda):
     assert int(bres.sum()) > 20
     operands = I.points_window(cfg, cam, points, bpos, bptr, bres)
     pk, pt = _clone_pool(st.pool), _clone_pool(st.pool)
-    n1 = FIP.res1_launch_count
+    n1 = COUNTS["fused_integrate_points_rows_res1"]
     fk = FIP.fused_integrate_points_rows(pk, *operands)
     ft = FIP.fused_integrate_points_rows_ref(pt, *operands)
     torch.cuda.synchronize()
-    assert FIP.res1_launch_count == n1 + 1
+    assert COUNTS["fused_integrate_points_rows_res1"] == n1 + 1
     for f in ("sdf", "sumsq", "weight"):
         assert torch.equal(getattr(pk, f), getattr(pt, f)), f
     assert int((pk.weight != st.pool.weight).sum()) > 1000
@@ -894,13 +897,15 @@ def test_k3_mixed_window_one_launch_on_card(cuda, n0, n1):
     pool, img, pix, r_vox, ptr, res = _k3_window(n0, n1, 7 * n0 + n1, cuda)
     consts = (0.4, 0.0, 40.0, 1.0, 255.0, 0.2)
     pk, pt = _clone_pool(pool), _clone_pool(pool)
-    c0, c1 = FIP.launch_count, FIP.res1_launch_count
+    c0, c1 = (COUNTS["fused_integrate_points_rows"],
+              COUNTS["fused_integrate_points_rows_res1"])
     fk = FIP.fused_integrate_points_rows(pk, img, pix, r_vox, ptr, res,
                                          consts)
     ft = FIP.fused_integrate_points_rows_ref(pt, img, pix, r_vox, ptr, res,
                                              consts)
     torch.cuda.synchronize()
-    assert (FIP.launch_count, FIP.res1_launch_count) == (
+    assert (COUNTS["fused_integrate_points_rows"],
+            COUNTS["fused_integrate_points_rows_res1"]) == (
         c0 + (n0 > 0), c1 + (n1 > 0))
     for f in ("sdf", "sumsq", "weight"):
         assert torch.equal(getattr(pk, f), getattr(pt, f)), f

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from mrhash_tpu_torch.ops import sample_image as SI
+from mrhash_tpu_torch.utils.profiler import COUNTS
 
 torch.set_num_threads(1)
 
@@ -71,8 +72,8 @@ def test_kernel_matches_twin_on_card():
     if not torch.cuda.is_available():
         pytest.skip("K6 is a CUDA kernel: needs a card")
     img, r0, c0, lr, lc = (t.cuda() for t in _inputs(1, 680, 1200, 4096))
-    n0 = SI.launch_count5
+    n0 = COUNTS["sample_image5"]
     got = SI.sample_image5(img, r0, c0, lr, lc)
     want = SI.sample_image5_ref(img, r0, c0, lr, lc)
-    assert SI.launch_count5 == n0 + 1
+    assert COUNTS["sample_image5"] == n0 + 1
     assert torch.equal(got, want)

@@ -19,6 +19,7 @@ from mrhash_tpu_torch.core.state import MapConfig, make_state
 from mrhash_tpu_torch.ops import camera as C
 from mrhash_tpu_torch.ops import integrate as I
 from mrhash_tpu_torch.ops import sample_image as SI
+from mrhash_tpu_torch.utils.profiler import COUNTS
 
 torch.set_num_threads(1)
 
@@ -183,9 +184,9 @@ def test_kernel_matches_twin_on_card(cuda):
     img, r0, c0, lr, lc, ok = _sampler_inputs(seed=1, A=4096)
     args = [torch.from_numpy(a).to(cuda) for a in
             (img, r0[:, None] + lr, c0[:, None] + lc, ok)]
-    n0 = SI.launch_count
+    n0 = COUNTS["sample_image"]
     got = SI.sample_image(*args)
     ref = SI.sample_image_ref(*args)
     torch.cuda.synchronize()
-    assert SI.launch_count == n0 + 1
+    assert COUNTS["sample_image"] == n0 + 1
     assert torch.equal(got, ref)
