@@ -175,6 +175,8 @@ K1_NAMES = ("fused_integrate_rows", "fused_integrate_rows_res1",
             "sample_image")
 K3_NAMES = ("fused_integrate_points_rows",
             "fused_integrate_points_rows_res1")
+ALLOC_NAMES = ("alloc_walk", "alloc_scatter", "alloc_compact", "alloc_lookup",
+               "alloc_insert")
 
 
 def reset_launches(*names):
@@ -518,6 +520,190 @@ def compare_kernels(depths, rgb):
     k2 = kernel_record(t, k2_err, lanes * 17 + 2 * HW * 4, lanes * 2)
     k6 = compare_sample5(pc_depth, rgb, row, col, ok, sk[:, 1])
     return k1, k2, k6
+
+
+def time_kernel_and_twin(kernel, twin):
+    """{"kernel": ms, "twin": ms, "library": None}: the median ms per call
+    of `kernel` replayed from a CUDA graph (as time_in_turns) and of
+    `twin` run eagerly (host dispatch and host reads included: a twin
+    that reads the host cannot be captured), in turns, REPEAT calls a
+    turn timed with CUDA events, after one warm-up call of each."""
+    import torch
+    turns = {"kernel": graphed(kernel), "twin": twin}
+    twin()
+    ms = {"kernel": [], "twin": []}
+    for k in range(2 * TURNS):
+        name = ("kernel", "twin", "twin", "kernel")[k % 4]
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        if name == "kernel":
+            turns[name]()
+        else:
+            for _ in range(REPEAT):
+                twin()
+        b.record()
+        torch.cuda.synchronize()
+        ms[name].append(a.elapsed_time(b) / REPEAT)
+    return dict(kernel=statistics.median(ms["kernel"]),
+                twin=statistics.median(ms["twin"]), library=None)
+
+
+def clone_table(t):
+    import torch
+
+    from mrhash_tpu_torch.ops import hashtable as H
+    return H.HashTable(**{k: v.clone() if torch.is_tensor(v) else v
+                          for k, v in vars(t).items()})
+
+
+def alloc_round_twins(cfg, tk, tr, keys, valid, rk, rv, scratch):
+    """One allocation round, kernels against twins: K7's candidates (where
+    valid) and scratch, K8's served keys, K9's table and per-key info,
+    all equal.  Returns (ukeys, stats, n served, n pending)."""
+    import torch
+
+    from mrhash_tpu_torch.ops import alloc_blocks as AB
+    from mrhash_tpu_torch.ops import hashtable as H
+    from mrhash_tpu_torch.ops import integrate as I
+    dev = keys.device
+    U = cfg.max_alloc_per_frame
+    assert torch.equal(valid, rv) and torch.equal(keys[valid], rk[rv])
+    ref = I.DedupScratch(torch.full(scratch.cells.shape, -1,
+                                    dtype=torch.int64, device=dev),
+                         scratch.salt)
+    I.dedup_scatter(rk, rv, ref)
+    assert torch.equal(scratch.cells.long(), ref.cells), "K7 scratch"
+    uk, stats = AB.compact(scratch.cells, keys, U)
+    ur = I.dedup_compact(rk, ref.cells, U)
+    n = ur.shape[0]
+    assert int(stats[0]) == n and torch.equal(uk[:n], ur), "K8"
+    info = H.insert(tk, uk, 0, stats.clone())
+    iref = H.insert_ref(tr, ur, torch.zeros(n, dtype=torch.int32,
+                                            device=dev))
+    for k in ("slot", "ptr", "res", "was_new", "present"):
+        assert torch.equal(info[k][:n], iref[k]), f"K9 {k}"
+    for f in ("pos", "ptr", "res", "fp", "heap_high", "heap_low"):
+        assert torch.equal(getattr(tk, f), getattr(tr, f)), f"K9 {f}"
+    assert (tk.high_count, tk.low_count) == (tr.high_count, tr.low_count)
+    return uk, stats, n, n - int(iref["present"].sum()) + int(
+        iref["was_new"].sum())
+
+
+def compare_alloc_kernels(depths, rgb, clouds):
+    """K7, K8 and K9 (allocation, csrc/alloc_blocks.cu) against their
+    twins, bit for bit, on frame 40 of the multi-res orbit (phase 7's
+    settings, GeoWrapper's 4 x 4 tile path; the map after 40 frames) and
+    on scan 20 of the LiDAR slice,
+    then each kernel's time (CUDA-graph replays) beside its bound and its
+    twin's (eager: the twins read the host).  K9 is timed on a copy of
+    the map after the round, where every key is found (the claims of the
+    frame's pending keys are held to the twin above, not timed).  Returns
+    {name: record}."""
+    import torch
+
+    from mrhash_tpu_torch.ops import alloc_blocks as AB
+    from mrhash_tpu_torch.ops import camera as C
+    from mrhash_tpu_torch.ops import hashtable as H
+    from mrhash_tpu_torch.ops import integrate as I
+
+    dev = torch.device("cuda")
+    out = {}
+    gw = make_wrapper("cuda", multires=True)
+    for i in range(ORBIT):
+        feed(gw, i, depths, rgb)
+    cfg, frame = gw.cfg, gw.state.frame
+    tk, tr = clone_table(gw.state.table), clone_table(gw.state.table)
+    rot, trans, _ = orbit_pose(ORBIT)
+    cam = C.with_pose(gw.camera, rot, trans)
+    del gw
+    torch.cuda.empty_cache()
+    pc = C.get_depth(cam, C.compute_cloud(cam, torch.from_numpy(
+        depths[ORBIT % len(depths)]).to(dev)))
+    steps = cfg.dda_steps(cfg.max_integration_distance)
+    U, S = cfg.max_alloc_per_frame, (cfg.max_alloc_per_frame
+                                     * cfg.dedup_scratch_factor)
+    scratch = I.dedup_scratch(cfg, frame, dev)
+    keys, valid = I.alloc_candidates_depth(cfg, cam, pc, steps, frame=frame,
+                                           scratch=scratch)
+    rk, rv = I.alloc_candidates_depth_ref(cfg, cam, pc, steps, frame=frame)
+    uk, stats, n, pending = alloc_round_twins(cfg, tk, tr, keys, valid, rk,
+                                              rv, scratch)
+    M, live = keys.shape[0], int(valid.sum())
+    R = M // steps
+    log(f"compare K7/K8/K9: orbit frame {ORBIT}: {R} rays x {steps} steps, "
+        f"{live} live candidates, {n} keys served, {pending} pending; "
+        f"kernels equal their twins")
+    cells = I.DedupScratch(AB.new_scratch(S, dev), scratch.salt)
+
+    def twin7():
+        k, v = I.alloc_candidates_depth_ref(cfg, cam, pc, steps, frame=frame)
+        I.dedup_scatter(k, v, I.DedupScratch(torch.full(
+            (S,), -1, dtype=torch.int64, device=dev), scratch.salt))
+
+    t = time_kernel_and_twin(lambda: I.alloc_candidates_depth(
+        cfg, cam, pc, steps, frame=frame, scratch=cells), twin7)
+    # the frame read (the tile path reads every pixel), key (12 B) and
+    # liveness (1 B) written per candidate, each scratch cell touched; ~80
+    # f32 operations a ray to set it up (and 2 a pixel for the tile's
+    # band), ~25 a step
+    out["alloc_walk"] = dict(kernel_record(
+        t, 0, ROWS * COLS * 4 + M * 13 + S * 4,
+        R * (80 + 25 * steps) + ROWS * COLS * 2),
+        rays=R, candidates=M, live=live, tile=cfg.alloc_tile)
+    cells64 = scratch.cells.long()
+    t = time_kernel_and_twin(lambda: AB.compact(scratch.cells, keys, U),
+                             lambda: I.dedup_compact(rk, cells64, U))
+    # the scratch read, each served key gathered and written
+    out["alloc_compact"] = dict(kernel_record(t, 0, S * 4 + n * 24, S),
+                                cells=S, served=n)
+    tg, tt = clone_table(tk), clone_table(tr)
+    stats_g, ur = stats.clone(), uk[:n].clone()
+    zero = torch.zeros(n, dtype=torch.int32, device=dev)
+    t = time_kernel_and_twin(lambda: AB.insert_launch(tg, uk, 0, stats_g),
+                             lambda: H.insert_ref(tt, ur, zero))
+    # per key: the key, 17 fingerprints and a key compare read, 18 B of
+    # info written; ~60 integer operations (two hashes, the probe)
+    out["alloc_insert"] = dict(kernel_record(
+        t, 0, n * (12 + 17 * 4 + 12 + 18), n * 60), keys=n, pending=pending)
+    del keys, valid, rk, rv, uk, tk, tr, tg, tt
+    torch.cuda.empty_cache()
+
+    # the LiDAR slice's scan L_COMPARE_AT
+    gw = make_lidar_wrapper("cuda", clouds[0], multires=True)
+    for i in range(L_COMPARE_AT):
+        feed_lidar(gw, i, clouds)
+    cfg, frame = gw.cfg, gw.state.frame
+    tk, tr = clone_table(gw.state.table), clone_table(gw.state.table)
+    cam = C.with_pose(gw.camera, gw.curr_rot, lidar_pose(L_COMPARE_AT))
+    del gw
+    torch.cuda.empty_cache()
+    pts = torch.from_numpy(clouds[L_COMPARE_AT]).to(dev)
+    steps = cfg.dda_steps(cfg.max_integration_distance)
+    S = cfg.max_alloc_per_frame * cfg.dedup_scratch_factor
+    scratch = I.dedup_scratch(cfg, frame, dev)
+    keys, valid = I.alloc_candidates_points(cfg, cam, pts, steps, None,
+                                            scratch)
+    rk, rv = I.alloc_candidates_points_ref(cfg, cam, pts, steps)
+    _, _, n, pending = alloc_round_twins(cfg, tk, tr, keys, valid, rk, rv,
+                                         scratch)
+    M, N = keys.shape[0], pts.shape[0]
+    log(f"compare K7/K8/K9: LiDAR scan {L_COMPARE_AT}: {N} points x {steps} "
+        f"steps, {int(valid.sum())} live candidates, {n} keys served, "
+        f"{pending} pending; kernels equal their twins")
+    cells = I.DedupScratch(AB.new_scratch(S, dev), scratch.salt)
+
+    def twin7p():
+        k, v = I.alloc_candidates_points_ref(cfg, cam, pts, steps)
+        I.dedup_scatter(k, v, I.DedupScratch(torch.full(
+            (S,), -1, dtype=torch.int64, device=dev), scratch.salt))
+
+    t = time_kernel_and_twin(lambda: I.alloc_candidates_points(
+        cfg, cam, pts, steps, None, cells), twin7p)
+    out["alloc_walk_points"] = dict(kernel_record(
+        t, 0, N * 12 + M * 13 + S * 4, N * (60 + 25 * steps)),
+        rays=N, candidates=M)
+    return out
 
 
 def compare_sample5(depth, rgb, row, col, ok, k2_depth):
@@ -1775,7 +1961,7 @@ def run_slice(depths, rgb, multires=False, mesh=True):
     gw = make_wrapper("cuda", multires)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(*K1_NAMES)
+    reset_launches(*K1_NAMES, *ALLOC_NAMES)
     frame_ms, occupied = [], []
     for i in range(N_FRAMES):
         t0 = time.perf_counter()
@@ -1783,7 +1969,11 @@ def run_slice(depths, rgb, multires=False, mesh=True):
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         occupied.append(gw.last_stats["occupied_blocks"])
-    launches = launch_counts(*K1_NAMES)
+    launches = launch_counts(*K1_NAMES, *ALLOC_NAMES)
+    # one allocation round a frame, all of it on the kernels (coarsening
+    # inserts through K9 too)
+    assert launches["alloc_walk"] == launches["alloc_compact"] == N_FRAMES
+    assert launches["alloc_insert"] >= N_FRAMES, launches
     peak = torch.cuda.max_memory_allocated()
     stats = gw.last_stats
     n1 = res1_blocks(gw)
@@ -1855,7 +2045,7 @@ def run_lidar(clouds, multires=False):
     gw = make_lidar_wrapper("cuda", clouds[0], multires)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(*K3_NAMES)
+    reset_launches(*K3_NAMES, *ALLOC_NAMES)
     frame_ms, occupied = [], []
     for i in range(L_FRAMES):
         t0 = time.perf_counter()
@@ -1864,6 +2054,9 @@ def run_lidar(clouds, multires=False):
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         occupied.append(gw.last_stats["occupied_blocks"])
     launches = launch_counts(*K3_NAMES)
+    alloc = launch_counts(*ALLOC_NAMES)
+    assert alloc["alloc_walk"] == alloc["alloc_compact"] == L_FRAMES, alloc
+    assert alloc["alloc_insert"] >= L_FRAMES, alloc
     peak = torch.cuda.max_memory_allocated()
     steady = frame_ms[L_STEADY:]
     stats = gw.last_stats
@@ -1888,7 +2081,8 @@ def run_lidar(clouds, multires=False):
         assert launches["fused_integrate_points_rows_res1"] == 0, launches
 
     lidar_mesh(gw, tag)
-    return launches, dict(median_ms=statistics.median(steady),
+    return launches, dict(alloc_launches=alloc,
+                          median_ms=statistics.median(steady),
                           mean_ms=statistics.fmean(steady),
                           fps=1e3 / statistics.fmean(steady),
                           peak_gib=peak / 2**30, window=occupied[-1],
@@ -2554,11 +2748,15 @@ def setter_scene(dev):
 def compare_small_setters():
     """The setter sequence on the card against the same on the CPU (where
     tests/test_torch_api.py holds a rebuild against the JAX package): the
-    same stats after every frame; after frame 5 and after frame 8 the same
-    key set, weight and rgbp equal, sdf within 2e-5, sumsq within 5e-4,
-    over more than 10,000 weighted voxels."""
+    same stats after every frame (host_syncs aside); after frame 5 and
+    after frame 8 the same key set, weight and rgbp equal, sdf within
+    2e-5, sumsq within 5e-4, over more than 10,000 weighted voxels."""
     import numpy as np
     (mc, sc), (mg, sg) = setter_scene("cpu"), setter_scene("cuda")
+    # host_syncs counts the sync sites of each device's own path: the
+    # card's allocation runs kernels K7-K9 with one host read a round
+    sc, sg = ([{k: v for k, v in st.items() if k != "host_syncs"}
+               for st in stats] for stats in (sc, sg))
     assert sc == sg, (sc, sg)
     seen = []
     for (pc, rc, c), (pg, rg, g) in zip(mc, mg):
@@ -3190,6 +3388,12 @@ def main():
     compare_qtree(train[0]["rgb"])
     k1, k2, k6 = compare_kernels(depths, rgb)
     torch.cuda.empty_cache()
+    ka = compare_alloc_kernels(depths, rgb, clouds)
+    torch.cuda.empty_cache()
+    for name, k in ka.items():
+        log(f"compare: {name} {k['ms']:.4f} ms (twin {k['plain_ms']:.4f} ms "
+            f"eager, bound {k['bound_ms']:.4f} ms by {k['bound_by']}, "
+            f"{k['bytes']} B) [{smi}]")
     log(f"compare: K1 {k1['ms']:.4f} ms (twin {k1['plain_ms']:.4f} ms, "
         f"bound {k1['bound_ms']:.4f} ms) over {k1['window_blocks']} blocks; "
         f"K2 {k2['ms']:.4f} ms (twin {k2['plain_ms']:.4f} ms, torch.take "
@@ -3408,6 +3612,16 @@ def main():
             entry.update({"k128_" + k: k5f[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
         kernels.append(entry)
+    for name, rec in ka.items():     # allocation: no TPU kernel replaced
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="mrhash_tpu_torch/csrc/alloc_blocks.cu",
+            replaces="none: the JAX package allocates with jnp ops",
+            launches=(lrun["alloc_launches"]["alloc_walk"]
+                      if name.endswith("_points") else launches.get(name, 0)),
+            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+            plain_note="the twin timed eagerly, its host reads included"))
     log(f"smoke: {time.perf_counter() - t_main:.1f} s in all")
     from mrhash_tpu_torch import geowrapper
     print(json.dumps({"mesh": dict(

@@ -61,10 +61,14 @@ def integrate_rgbd(cfg: MapConfig, state: MapState, cam: C.Camera,
     with stage("rgbd.alloc"):
         with stage("rgbd.alloc.cloud"):
             pc_depth = C.get_depth(cam, C.compute_cloud(cam, depth_img))
+        # the walk fills round 0's dedup scratch (fused in one kernel on
+        # a card)
         with stage("rgbd.alloc.candidates"):
+            scratch = I.dedup_scratch(cfg, state.frame, pc_depth.device)
             keys, valid = I.alloc_candidates_depth(
-                cfg, cam, pc_depth, num_steps, frame=state.frame)
-        alloc = I.alloc_blocks(cfg, table, keys, valid, state.frame)
+                cfg, cam, pc_depth, num_steps, frame=state.frame,
+                scratch=scratch)
+        alloc = I.alloc_blocks(cfg, table, keys, valid, state.frame, scratch)
 
     # --- compaction + fused integration -------------------------------------
     with stage("rgbd.integrate"):
@@ -130,10 +134,11 @@ def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
     # each stage is a torch.profiler range while a profiler runs (points.*;
     # chip_profile.py reads their host and device times)
     with stage("points.alloc_candidates"):
+        scratch = I.dedup_scratch(cfg, state.frame, points.device)
         keys, valid = I.alloc_candidates_points(
-            cfg, cam, points, cfg.dda_steps(mdist), normals)
+            cfg, cam, points, cfg.dda_steps(mdist), normals, scratch)
     with stage("points.alloc_blocks"):
-        alloc = I.alloc_blocks(cfg, table, keys, valid, state.frame)
+        alloc = I.alloc_blocks(cfg, table, keys, valid, state.frame, scratch)
 
     # no frustum filter: the scan sees all around (the reference's
     # compact_active without a camera)

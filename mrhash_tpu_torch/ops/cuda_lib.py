@@ -36,6 +36,7 @@ _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _i64 = ctypes.c_int64
 _f = ctypes.c_float
+_u32 = ctypes.c_uint32
 SIGNATURES = {
     # depth, rgbp, cols, cam, bpos, ptr, entries, n_entries, res,
     # sdf, sumsq, weight, rgbp_pool, flags, stream
@@ -59,6 +60,23 @@ SIGNATURES = {
     # attr, valid, n_tiles, K, grid_x, tfin, mask, gt, gc, gout, stream
     "mrhash_blend_backward": [_vp, _vp, _i, _i, _i, _vp, _vp, _vp, _vp, _vp,
                               _vp],
+    # mode, depth, rs, cs, s, py, px, ws, row0, h, w, far, points, normals,
+    # fx, fy, cx, cy, rot, trans, t0, t1, mdist, vvs, ex, ey, ez, n_rays,
+    # steps, keys, valid, scratch, n_cells, salt, stream
+    "mrhash_alloc_walk": [_i, _vp, _i64, _i64, *[_i] * 8, *[_vp] * 8,
+                          *[_f] * 7, _i64, _i, _vp, _vp, _vp, _i64, _u32,
+                          _vp],
+    # keys, valid, n, scratch, n_cells, salt, stream
+    "mrhash_alloc_scatter": [_vp, _vp, _i64, _vp, _i64, _u32, _vp],
+    # scratch, n_cells, keys, u_max, ukeys, stats, stream
+    "mrhash_alloc_compact": [_vp, _i64, _vp, _i64, _vp, _vp, _vp],
+    # keys, n_dev, n_host, n_max, res, res_const, n_buckets, capacity, pos,
+    # ptr, res_tab, fp, heap_high, n_high, high_count, heap_low, n_low,
+    # low_count, out_slot, out_ptr, out_res, out_new, out_present, sorted,
+    # ws32, stats, stream
+    "mrhash_alloc_insert": [_vp, _vp, _i64, _i64, _vp, _i, _i64, _i64,
+                            *[_vp] * 5, _i64, _i64, _vp, _i64, _i64,
+                            *[_vp] * 9],
 }
 
 

@@ -6,6 +6,9 @@ filter with an exact compare of the suspects, bucket-rank slot claims with
 one scatter-max election, and prefix-sum heap draws — so the same key
 stream gives the same slots, ptrs and heap counts as the reference.
 
+On a card `insert` is kernel K9 (ops/alloc_blocks.py); `insert_ref` is
+its plain twin, and what the CPU runs.
+
 Differences from the reference (PORT_NOTES.md):
 - the tensors are updated in place, and the heap counts are Python ints;
 - the fingerprint-suspect exact compare has no 64-key cap (eager torch
@@ -24,6 +27,7 @@ import dataclasses
 import torch
 
 from mrhash_tpu_torch import params as P
+from mrhash_tpu_torch.ops import alloc_blocks
 from mrhash_tpu_torch.utils.profiler import (host_int, nonzero, pick, put,
                                              unique_rows)
 
@@ -210,9 +214,37 @@ def _heap_push(heap, count: int, ids):
     return count + n
 
 
-def insert(table: HashTable, keys, res):
+def insert(table: HashTable, keys, res, count=None):
+    """Batched allocBlock (voxel_data_structures.cu:501-755), updating
+    `table` in place: insert_ref's semantics.  CPU tensors take the plain
+    twin insert_ref; CUDA tensors kernel K9 (ops/alloc_blocks.py), with
+    one counted host read of the heaps' new free counts.  keys i32[U,3];
+    res i32[U] or one int for every key; `count`, on a card only, is
+    kernel K8's stats tensor, whose first entry holds how many rows of
+    keys are real (ops/alloc_blocks.compact).
+
+    Returns info dict(slot, ptr, res, was_new, present) per key, as
+    insert_ref's (with `count`, per row of keys, rows past the count not
+    written), and info["count"], the keys the batch held (a host int)."""
+    if alloc_blocks.on_card(keys.device):
+        if torch.is_tensor(res):
+            res = res.to(torch.int32).contiguous()
+        info, n = alloc_blocks.insert(
+            table, keys.to(torch.int32).contiguous(), res, count)
+        info["count"] = n
+        return info
+    if not torch.is_tensor(res):
+        res = torch.full((keys.shape[0],), int(res), dtype=torch.int32,
+                         device=keys.device)
+    info = insert_ref(table, keys, res)
+    info["count"] = int(keys.shape[0])
+    return info
+
+
+def insert_ref(table: HashTable, keys, res):
     """Batched allocBlock (voxel_data_structures.cu:501-755), atomic-free,
-    updating `table` in place.
+    updating `table` in place: the plain twin of kernel K9, in torch ops
+    on any device.
 
     keys i32[U,3] (distinct, see integrate.dedup_candidates), res i32[U].
     Each key not yet in the table claims the (rank+1)-th free slot of its

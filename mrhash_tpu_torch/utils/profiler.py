@@ -10,7 +10,7 @@ COUNTS is the process's one registry of event counts: the kernels'
 launches (under their wrappers' names, e.g. "fused_integrate_rows") and
 "host_syncs", the host's reads of device values that the frame step
 makes.  Each sync site of the frame step goes through host_int,
-host_bool, host_list, nonzero, pick, put, upload or unique_rows, which
+host_bool, host_list, nonzero, pick, upload or unique_rows, which
 count the syncs a call makes on a card whatever the device (one, or
 unique_rows' six), so a count is a property of the code path: on a card
 each is one stream synchronization, on the CPU none.  A caller
@@ -69,10 +69,11 @@ def pick(t, mask):
 
 
 def put(t, index, value):
-    """t[index] = value for a Python number: the number goes from host
-    memory to t's device, one counted sync."""
-    COUNTS[SYNCS] += 1
-    t[index] = value
+    """t[index] = value for a Python number along t's first dimension, as
+    index_fill_, which takes the number as a kernel argument: no upload,
+    no sync (`t[index] = number` uploads the number from host memory, a
+    sync on a card)."""
+    t.index_fill_(0, index.reshape(-1), value)
 
 
 def unique_rows(t):

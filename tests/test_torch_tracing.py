@@ -21,7 +21,9 @@ torch.profiler (CPU activity) and hold:
 The `gpu` cases (`python -m pytest --noconftest -m gpu
 tests/test_torch_tracing.py` on the card) hold host_syncs, frame by
 frame, equal to the profiler's count of the runtime's synchronizations
-(its events named *Synchronize*) inside the `compute` range.
+(its events named *Synchronize*) inside the `compute` range, with
+allocation on its kernels K7-K9 (one counted host read a round, their
+launches counted every frame).
 """
 import pytest
 import torch
@@ -34,6 +36,7 @@ from mrhash_tpu_torch import params as P
 from mrhash_tpu_torch.geowrapper import GeoWrapper
 from mrhash_tpu_torch.ops import camera as C
 from mrhash_tpu_torch.ops import coords as X
+from mrhash_tpu_torch.utils.profiler import COUNTS
 
 OLD_KEYS = {"occupied_blocks", "occupied_total", "high_free", "low_free",
             "frame", "unserved_blocks", "res0_blocks"}
@@ -66,6 +69,7 @@ SPANS = {
                "points.coarsen": "compute", "points.starve": "compute",
                "points.gc": "compute", "points.stats": "compute"}}
 ONCE = {"points.starve"}       # frame 2 of 3
+ALLOC = ("alloc_walk", "alloc_compact", "alloc_insert")   # K7, K8, K9
 
 
 def _wrapper(path, device):
@@ -192,6 +196,7 @@ def test_host_syncs_match_the_profiler_on_card(path, cuda, tmp_path,
     gw, feed = _wrapper(path, cuda)
     feed(0)                 # builds the kernels' library
     torch.cuda.synchronize()
+    alloc0 = {k: COUNTS[k] for k in ALLOC}
     counted = []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -209,3 +214,8 @@ def test_host_syncs_match_the_profiler_on_card(path, cuda, tmp_path,
     assert len(frames) == 5
     assert seen == counted
     assert min(counted) > 0
+    # allocation ran on its kernels, one round a frame (coarsening's
+    # inserts launch K9 too)
+    alloc = {k: COUNTS[k] - alloc0[k] for k in ALLOC}
+    assert alloc["alloc_walk"] == alloc["alloc_compact"] == 5, alloc
+    assert alloc["alloc_insert"] >= 5, alloc
