@@ -8,8 +8,10 @@ with sdf, sumsq, weight and packed colour.  Blocks are matched by (key,
 res); the numbers compared are:
 
 - blocks_apart: blocks in one map and not in the other (or at another
-  resolution), as a share of the reference's blocks: allocation, GC and
-  the coarsening decision;
+  resolution), and each extra copy of a key the program holds more than
+  once (on the card and in its host grid, or twice in the grid), as a
+  share of the reference's blocks: allocation, GC, the coarsening
+  decision, and streaming, which must lose and duplicate nothing;
 - weight_apart: voxels of matched blocks whose weight differs, as a share
   of the matched blocks' weighted voxels: which voxels each frame updated,
   and starvation;
@@ -56,10 +58,41 @@ def map_content(pos, ptr, res, sdf, sumsq, weight, rgbp):
     return out
 
 
+def host_content(pos, res, sdf, ssq, w, rgb):
+    """map_content's form of blocks held in the host layout (numpy pos
+    i32[n,3], res i32[n] and [n,512] fields, a res-1 block's 64 voxels at
+    lanes [0, 64)), as the program's host chunk grid holds them."""
+    codes = key_codes(pos)
+    out = {}
+    for r, lanes in ((0, LANES), (1, LOW_LANES)):
+        sel = np.nonzero(res == r)[0]
+        sel = sel[np.argsort(codes[sel], kind="stable")]
+        out[r] = (codes[sel], {name: f[sel, :lanes] for name, f in (
+            ("sdf", sdf), ("sumsq", ssq), ("weight", w), ("rgbp", rgb))})
+    return out
+
+
+def union(*maps):
+    """One map_content result holding the blocks of `maps`, one copy of
+    each key (at either resolution) kept, and "dups": the count of the
+    further copies."""
+    codes = [np.concatenate([m[r][0] for m in maps]) for r in (0, 1)]
+    both = np.concatenate(codes)
+    keep = np.zeros(both.size, dtype=bool)
+    keep[np.unique(both, return_index=True)[1]] = True
+    out = {"dups": int(both.size - keep.sum())}
+    for r, k in ((0, keep[:codes[0].size]), (1, keep[codes[0].size:])):
+        order = np.argsort(codes[r][k], kind="stable")
+        out[r] = (codes[r][k][order], {
+            name: np.concatenate([m[r][1][name] for m in maps])[k][order]
+            for name in maps[0][r][1]})
+    return out
+
+
 def compare(prog, ref):
     """The numbers compared (module docstring) between two map_content
     results, as plain floats."""
-    apart = matched = ref_blocks = 0
+    apart, matched, ref_blocks = prog.get("dups", 0), 0, 0
     w_apart = weighted = rgb_apart = both = 0
     gap = 0.0
     for r in (0, 1):

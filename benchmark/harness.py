@@ -10,11 +10,15 @@ gives it, under the benchmark's folder:
   traffic/<mix>.json             the scene kind and its parameters, read by
                                  scenes.py, with the warm-up and traced
                                  frame counts
+  scene_kinds/<kind>.py          make(traffic, sensor, gen, device), a
+                                 scene kind scenes.py does not hold
   metrics/<per-layer metric>.py  read(trace) -> number or None
   limits/<cell>.json             the limit of each number compared
 
 The program is built with profiling off and closed before the reference
-runs, so its streamer thread has ended and its pool is freed.
+runs, so its streamer thread has ended and its pool is freed.  Its map is
+the union of its device map and the blocks it streamed to its host grid;
+the reference never streams (reference/replay.py).
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import program
 import scenes
 import tracing
 from reference import replay
+from reference.state import ReplayLimit
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "mrhash_tpu")
 GIB = float(1 << 30)
@@ -111,7 +116,7 @@ def run_cell(bench_path, cell, seed, seconds, trace, device="cuda",
                for m in metrics_of(bench, "per_layer", cell)} if trace else {}
 
     # --- set-up: inputs, the program, the warm-up ---------------------------
-    frames = scenes.make(traffic, conf["sensor"], seed, device)
+    frames = scenes.make(traffic, conf["sensor"], seed, device, base)
     gw = program.build(conf, frames, device)
     warm = traffic["warmup_frames"]
     for i in range(warm):
@@ -163,24 +168,38 @@ def run_cell(bench_path, cell, seed, seconds, trace, device="cuda",
 
     # --- the program's map, then the reference's ------------------------------
     program.close(gw)
-    prog_map, streamed = program.read_map(gw)
+    prog_map, streams = program.read_map(gw)
     del gw
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+    log(f"streams: {streams['events']} stream-out events, "
+        f"{streams['blocks_out']} blocks out, {streams['blocks_in']} back "
+        f"in; the host grid holds {streams['host_blocks']}; "
+        f"{prog_map['dups']} further copies of a key (on the card and in "
+        "the grid, or twice in the grid)")
     t_ref = time.perf_counter()
-    ref_map = replay.replay(conf, frames, n_frames, device,
-                            compare.map_content)
-    numbers = compare.compare(prog_map, ref_map)
-    correct, checks = compare.judge(numbers, limits)
-    if streamed:
+    info = {}
+    try:
+        ref_map = replay.replay(conf, frames, n_frames, device,
+                                compare.map_content, info=info)
+    except ReplayLimit as e:
+        log(f"reference: {e}; the run is not correct")
         correct = False
-        log(f"the program streamed {streamed} blocks out: the reference "
-            "keeps every block on the device")
-    log(f"reference: {n_frames} frames replayed in "
-        f"{time.perf_counter() - t_ref:.6f} s; {numbers['ref_blocks']} "
-        f"blocks, {numbers['matched_blocks']} matched, "
-        f"{numbers['weighted_voxels']} weighted voxels compared")
+        checks = {k: {"value": None, "limit": lim}
+                  for k, lim in limits.items()}
+    else:
+        numbers = compare.compare(prog_map, ref_map)
+        correct, checks = compare.judge(numbers, limits)
+        log(f"reference: {n_frames} frames replayed in "
+            f"{time.perf_counter() - t_ref:.6f} s; {numbers['ref_blocks']} "
+            f"blocks, {numbers['matched_blocks']} matched, "
+            f"{numbers['weighted_voxels']} weighted voxels compared; pool "
+            f"{info['pool_blocks']} blocks (grew {info['grown']} times), "
+            f"widest window {info['widest_window']} blocks (bound "
+            f"{info['window_bound_m']} m); {info['full_window']} keys found "
+            f"their probe window full, {info['lost_slot']} lost their slot to "
+            "another of their batch (each waits for a later frame)")
 
     # --- the result -----------------------------------------------------------
     result = {"correct": bool(correct), "attempted": len(stats), "failed": 0}

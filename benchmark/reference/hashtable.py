@@ -41,6 +41,12 @@ class HashTable:
     low_count: int           # free res-1 blocks
     num_buckets: int
     num_blocks: int
+    # keys insert left out: their probe window was full, or they lost
+    # their slot to another key of the batch (both staggered to a later
+    # frame), or their heap was dry (the replay holds this at 0)
+    full_window: int = 0
+    heap_dry: int = 0
+    lost_slot: int = 0
 
     @property
     def capacity(self) -> int:
@@ -259,6 +265,12 @@ def insert(table: HashTable, keys, res):
         ids_l, got_l, table.low_count = _heap_draw(
             table.heap_low, table.low_count, winner & (pres == 1))
         pnew = got_h | got_l
+        full, lost, dry = torch.stack([
+            (~has).sum(), (has & ~winner).sum(),
+            (winner & ~pnew).sum()]).tolist()
+        table.full_window += full
+        table.lost_slot += lost
+        table.heap_dry += dry
         pptr = torch.where(got_h, ids_h * P.TOTAL_SDF_BLOCK_SIZE,
                            ids_l * P.TOTAL_LOW_BLOCK_SIZE)
         d = slot_p[pnew]

@@ -19,9 +19,9 @@ import math
 import torch
 
 from reference import params as P
-from reference.state import (LANES, MapConfig, VoxelPool,
-                                         pack_rgb, put_windows, unpack_rgb,
-                                         window_voxels)
+from reference.state import (LANES, MapConfig, ReplayLimit, VoxelPool,
+                             pack_rgb, put_windows, unpack_rgb,
+                             window_voxels)
 from reference import camera as C
 from reference import coords as X
 from reference import fused_integrate as FI
@@ -256,14 +256,36 @@ def alloc_blocks(cfg: MapConfig, table: H.HashTable, keys, valid,
 # compacted block window
 # ---------------------------------------------------------------------------
 
-def compact_active(cfg: MapConfig, table: H.HashTable, cam: C.Camera = None):
+def blocks_within(cfg: MapConfig, cam: C.Camera, block_pos, reach: float):
+    """bool[...]: blocks whose nearest point lies within `reach` metres of
+    the sensor (cam's position).  A block's voxels lie in the cube
+    [corner, corner + 8 voxels) from its corner, in float64."""
+    side = P.SDF_BLOCK_SIZE * cfg.virtual_voxel_size
+    lo = block_pos.to(torch.float64) * side
+    o = cam.trans.to(torch.float64)
+    d = torch.maximum(torch.minimum(o, lo + side), lo) - o
+    return (d * d).sum(dim=-1) <= reach * reach
+
+
+def compact_active(cfg: MapConfig, table: H.HashTable, cam: C.Camera = None,
+                   reach: float = None):
     """flatAndReduceHashTable (voxel_data_structures.cu:405-499): occupied
-    slots (inside the padded frustum when `cam` is given), in slot order,
-    capped at cfg.max_active_blocks.  Returns (slots i64[A], bpos, bptr,
-    bres)."""
-    inside = (None if cam is None else
-              blocks_in_frustum_approx(cam, table.pos, cfg.virtual_voxel_size))
-    slots = H.compact(table, inside, int(cfg.max_active_blocks))
+    slots in slot order; inside the padded frustum when `cam` is given,
+    or with `reach` the blocks within it of the sensor (blocks_within).
+    The program caps the window at cfg.max_active_blocks: a replay whose
+    window would pass the cap raises ReplayLimit instead of truncating.
+    Returns (slots i64[A], bpos, bptr, bres)."""
+    inside = None
+    if reach is not None:
+        inside = blocks_within(cfg, cam, table.pos, reach)
+    elif cam is not None:
+        inside = blocks_in_frustum_approx(cam, table.pos,
+                                          cfg.virtual_voxel_size)
+    slots = H.compact(table, inside, table.capacity)
+    if slots.numel() > cfg.max_active_blocks:
+        raise ReplayLimit(
+            f"the window holds {slots.numel()} blocks, over the cap of "
+            f"{cfg.max_active_blocks} (max_active_blocks)")
     return slots, table.pos[slots], table.ptr[slots], table.res[slots]
 
 

@@ -92,7 +92,7 @@ def integrate_rgbd(cfg: MapConfig, state: MapState, cam: C.Camera,
 
 
 def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
-                     points, normals=None, weights=None):
+                     points, normals=None, weights=None, reach=None):
     """Full LiDAR frame step, in place (voxel_data_structures.cpp:112-134;
     mrhash_tpu/core/pipeline.py::integrate_points).  points f32[N,3] in
     the camera (sensor) frame on the state's device, a zero point being no
@@ -111,7 +111,17 @@ def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
     starve scan collects on the post-starve weights as the reference's
     does.  Returns (state, stats); a point-centric scan's stats also hold
     the walk's visited voxels and their distinct blocks (visited_keys,
-    distinct_keys), and with GC on, gc_freed counts the blocks it freed."""
+    distinct_keys), and with GC on, gc_freed counts the blocks it freed.
+
+    `reach` (metres; the projective update with GC and starvation off)
+    bounds the window to the blocks within it of the sensor (replay.py
+    says why no voxel beyond can change).  The program's window holds
+    every block, so a block outside this one still has its coarsening
+    decision taken each scan, from content unchanged since it was last in
+    the window: the decisions left unserved there (by
+    max_coarsen_per_frame, or on scan 0, which does not coarsen) stand in
+    state.coarsen_pending and join the window's own, in slot order, as
+    the program's would."""
     table, pool = state.table, state.pool
     mdist = float(cfg.max_integration_distance)
 
@@ -126,7 +136,8 @@ def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
     # no frustum filter: the scan sees all around (the reference's
     # compact_active without a camera)
     with stage("points.compact_active"):
-        window = I.compact_active(cfg, table)
+        window = (I.compact_active(cfg, table) if reach is None else
+                  I.compact_active(cfg, table, cam, reach))
     count = int(window[0].numel())
     walk = {}
     if cfg.projective_sdf:
@@ -141,9 +152,15 @@ def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
         decide = (I.coarsen_decide(cfg, pool, *window[2:])
                   if cfg.sdf_var_threshold > 0.0 else None)
         gc_flags = None
+    if reach is not None:       # GC is off: no GC decision to carry
+        window, decide, by_slot = _with_pending(state, window, decide)
+        gc_flags = None
     with stage("points.coarsen"):
         _, window, gc_flags = _coarsen(cfg, state, window, decide,
                                        gc_flags)
+    if reach is not None:
+        state.coarsen_pending = (by_slot & (table.ptr != P.FREE_ENTRY)
+                                 & (table.res == 0))
     n = cfg.n_frames_invalidate_voxels
     if n > 0:
         slots, bpos, bptr, bres = window
@@ -162,6 +179,24 @@ def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
         stats = _stats(state, count, window[3])
     stats.update(walk)
     return state, stats
+
+
+def _with_pending(state: MapState, window, decide):
+    """The window joined, in slot order, with the entries outside it whose
+    coarsening decision stands (state.coarsen_pending); returns that
+    window, its decisions, and the decisions by table slot
+    (bool[capacity])."""
+    table = state.table
+    inside = torch.zeros(table.capacity, dtype=torch.bool,
+                         device=decide.device)
+    inside[window[0]] = True
+    by_slot = torch.zeros_like(inside)
+    by_slot[window[0]] = decide
+    if state.coarsen_pending is not None:
+        by_slot |= state.coarsen_pending & ~inside
+    slots = torch.nonzero(inside | by_slot).flatten()
+    return ((slots, table.pos[slots], table.ptr[slots], table.res[slots]),
+            by_slot[slots], by_slot)
 
 
 def _stats(state: MapState, count: int, bres):

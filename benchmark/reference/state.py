@@ -23,6 +23,12 @@ from reference import hashtable as H
 LANES = P.TOTAL_SDF_BLOCK_SIZE
 
 
+class ReplayLimit(RuntimeError):
+    """The replay cannot follow the run within the configuration's caps
+    (its window would truncate, or a key could not be placed): the run is
+    not correct, and the message says why."""
+
+
 def stage(name: str):
     """The program's profiler ranges have no place in the reference."""
     return contextlib.nullcontext()
@@ -105,6 +111,9 @@ class MapState:
     table: H.HashTable
     pool: VoxelPool
     frame: int = 0   # num_integrated_frames_
+    # bool[capacity]: res-0 entries left outside a reach-bounded LiDAR
+    # window whose coarsening decision stands unserved (pipeline.py)
+    coarsen_pending: torch.Tensor = None
 
 
 def make_state(num_blocks: int, num_buckets: int | None = None,

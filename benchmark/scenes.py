@@ -16,13 +16,20 @@ on the card in a few large calls:
   radius `wall_r`; the sensor circles `circle_r` about the axis at
   `step_m` per scan, one lap of scans, cycled.
 
+A kind not in SCENES is a file of its own, `scene_kinds/<kind>.py` beside
+this module, whose `make(traffic, sensor, gen, device)` returns Frames: a
+later scene is added as a new file, as a per-layer metric is.
+
 Every draw comes from one torch.Generator seeded with --seed, so the same
 seed gives the same inputs; the sizes and poses do not depend on it.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import math
+import os
+import re
 
 import numpy as np
 import torch
@@ -48,13 +55,31 @@ class Frames:
         return self.points[i % self.n]
 
 
-def make(traffic: dict, sensor: dict, seed: int, device="cuda") -> Frames:
+HERE = os.path.dirname(os.path.abspath(__file__))
+KIND_NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
+
+
+def kind_module(kind: str, base: str = HERE):
+    """The module `<base>/scene_kinds/<kind>.py` of a scene kind that
+    SCENES does not hold."""
+    path = os.path.join(base, "scene_kinds", f"{kind}.py")
+    if not KIND_NAME.fullmatch(kind) or not os.path.isfile(path):
+        raise ValueError(f"unknown scene {kind!r}: not one of "
+                         f"{sorted(SCENES)} and no file {path}")
+    spec = importlib.util.spec_from_file_location(f"scene_{kind}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def make(traffic: dict, sensor: dict, seed: int, device="cuda",
+         base: str = HERE) -> Frames:
     kind = traffic["scene"]
-    if kind not in SCENES:
-        raise ValueError(f"unknown scene {kind!r}; known: {sorted(SCENES)}")
+    gen_frames = (SCENES[kind] if kind in SCENES
+                  else kind_module(kind, base).make)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) % (1 << 63))
-    return SCENES[kind](traffic, sensor, gen, torch.device(device))
+    return gen_frames(traffic, sensor, gen, torch.device(device))
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,15 @@
 """The harness end to end on the CPU at a tiny size: the result line, the
 port's plain path against the reference, the faults the comparison must
-catch, the control, and a configuration, mix, per-layer metric and cell
-added as files alone."""
+catch, the control, a configuration, mix, per-layer metric and cell
+added as files alone, and a street drive that streams to host memory,
+with the streaming faults the union of device map and host grid must
+catch."""
 import json
 import os
 
 import control
 import harness
+import numpy as np
 import pytest
 
 CELLS = ("replica_rgbd_mr.orbit", "newer_college_lidar_mr.loop")
@@ -145,3 +148,106 @@ def test_control_fails_on_the_card_at_the_cells_size(cell, frames):
     out = control.run(os.path.join(root, "BENCHMARK.json"), cell, SEED,
                       frames)
     assert out["passed"] is False, out
+
+
+def streams_logged(err):
+    """(events, blocks out) from the run's log line."""
+    line = next(x for x in err.splitlines() if x.startswith("streams: "))
+    w = line.split()
+    return int(w[1]), int(w[4])
+
+
+def test_a_drive_that_streams_is_judged_on_device_and_host(drive, capsys):
+    bench, base = drive
+    r = harness.run_cell(bench, "newer_college_drive.street", SEED, 0.0, 0, "cpu", base=base)
+    events, out = streams_logged(capsys.readouterr().err)
+    assert events >= 1 and out >= 1
+    assert r["correct"] is True, r["checks"]
+    assert set(r["checks"]) == {"blocks_apart", "weight_apart", "sdf_gap"}
+    for c in r["checks"].values():
+        assert c["value"] == 0.0
+
+
+def drop_one(real):
+    """The host grid's ingest, losing the first block of every event."""
+    def add_blocks(self, block_world, pos, res, *fields):
+        return real(self, block_world[1:], pos[1:], res[1:],
+                    *(f[1:] for f in fields))
+    return add_blocks
+
+
+def alter_one(real):
+    """The host grid's ingest, the first block's first weighted voxel's
+    sdf altered."""
+    def add_blocks(self, block_world, pos, res, sdf, ssq, w, rgb):
+        sdf = sdf.copy()
+        sdf[0, int(np.argmax(w[0] > 0))] += 0.2
+        return real(self, block_world, pos, res, sdf, ssq, w, rgb)
+    return add_blocks
+
+
+def keep_one(real):
+    """The eviction plan, with the first evicted key put back into the
+    table: it stays on the card and goes to the grid too."""
+    def plan_evictions(cfg, table, *a, **k):
+        from mrhash_tpu_torch.ops import hashtable as H
+        pos, ptr, res = real(cfg, table, *a, **k)
+        if pos.shape[0]:
+            H.insert(table, pos[:1], res[:1])
+        return pos, ptr, res
+    return plan_evictions
+
+
+def inside_reach(gw):
+    """The stream trigger evicting every block beyond half the sensor's
+    range, inside the reach of its scans."""
+    gw.state = gw.streamer.stream(gw.state, gw.curr_trans,
+                                  0.5 * float(gw.camera.max_depth))
+    gw._high_free = gw.state.table.high_count
+
+
+@pytest.mark.parametrize("fault", ["dropped", "altered", "duplicate",
+                                   "inside_reach"])
+def test_streaming_faults_come_out_not_correct(drive, monkeypatch, capsys,
+                                               fault):
+    from mrhash_tpu_torch import geowrapper
+    from mrhash_tpu_torch.core import streaming
+    bench, base = drive
+    grid = streaming.ChunkGrid
+    if fault == "dropped":
+        monkeypatch.setattr(grid, "add_blocks", drop_one(grid.add_blocks))
+    elif fault == "altered":
+        monkeypatch.setattr(grid, "add_blocks", alter_one(grid.add_blocks))
+    elif fault == "duplicate":
+        monkeypatch.setattr(streaming, "plan_evictions",
+                            keep_one(streaming.plan_evictions))
+    else:
+        monkeypatch.setattr(geowrapper.GeoWrapper, "_stream", inside_reach)
+    r = harness.run_cell(bench, "newer_college_drive.street", SEED, 0.0, 0, "cpu", base=base)
+    assert streams_logged(capsys.readouterr().err)[0] >= 1
+    assert r["correct"] is False, r["checks"]
+
+
+def test_union_counts_each_further_copy_of_a_key():
+    """A key on the card and in the host grid, at either resolution, or
+    twice in the grid, is one block apart for each further copy, even
+    where every copy holds the same voxels."""
+    import compare
+    rng = np.random.default_rng(5)
+
+    def blocks(pos, res):
+        n = len(pos)
+        return compare.host_content(
+            np.asarray(pos, np.int32), np.asarray(res, np.int32),
+            rng.random((n, 512), np.float32), np.zeros((n, 512), np.float32),
+            np.ones((n, 512), np.int32), np.zeros((n, 512), np.int32))
+    card = blocks([[0, 0, 0], [1, 0, 0], [2, 0, 0]], [0, 0, 1])
+    grid = blocks([[3, 0, 0], [1, 0, 0], [2, 0, 0], [3, 0, 0]], [0, 1, 1, 0])
+    one = compare.union(card, grid)
+    assert one["dups"] == 3
+    assert one[0][0].size + one[1][0].size == 4
+    ref = compare.union(card, blocks([[3, 0, 0]], [0]))
+    assert ref["dups"] == 0
+    got = compare.compare(one, ref)
+    assert got["blocks_apart"] == 3 / 4          # the copies alone
+    assert compare.compare(ref, ref)["blocks_apart"] == 0
