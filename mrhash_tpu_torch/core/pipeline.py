@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from mrhash_tpu_torch import params as P
-from mrhash_tpu_torch.core.state import MapConfig, MapState
+from mrhash_tpu_torch.core.state import MapConfig, MapState, coarsen_pending
 from mrhash_tpu_torch.ops import camera as C
 from mrhash_tpu_torch.ops import integrate as I
 from mrhash_tpu_torch.utils.profiler import (COUNTS, SYNCS, host_bool,
@@ -32,16 +32,17 @@ def _coarsen(cfg: MapConfig, state: MapState, window, decide, gc_decision):
     coarsening freed: the window is not recompacted (the reference's
     deviation D18), so starvation and GC run on the pre-coarsen window
     minus the freed entries, and this frame's coarse blocks starve and
-    collect from the next frame on."""
+    collect from the next frame on.  Last, the window entries it freed
+    (bool[A], or None where it did not run)."""
     if cfg.sdf_var_threshold <= 0.0 or state.frame == 0 or not host_bool(
             decide.any()):
-        return None, window, gc_decision
+        return None, window, gc_decision, None
     slots, bpos = window[:2]
     new_slots, new_mask, freed = I.coarsen_by_variance(
         cfg, state.table, state.pool, slots, bpos, decide)
     keep = ~freed
     return ((new_slots, new_mask), tuple(pick(t, keep) for t in window),
-            None if gc_decision is None else pick(gc_decision, keep))
+            None if gc_decision is None else pick(gc_decision, keep), freed)
 
 
 def integrate_rgbd(cfg: MapConfig, state: MapState, cam: C.Camera,
@@ -73,7 +74,7 @@ def integrate_rgbd(cfg: MapConfig, state: MapState, cam: C.Camera,
     # --- compaction + fused integration -------------------------------------
     with stage("rgbd.integrate"):
         with stage("rgbd.compact"):
-            window = I.compact_active(cfg, table, cam)
+            window, cut = I.compact_window(cfg, table, cam)
         count = int(window[0].numel())
         with stage("rgbd.K1"):
             aux = I.fused_integrate_depth(cfg, pool, cam, pc_depth, rgb_img,
@@ -81,7 +82,7 @@ def integrate_rgbd(cfg: MapConfig, state: MapState, cam: C.Camera,
 
     # --- variance-adaptive coarsening ---------------------------------------
     with stage("rgbd.coarsen"):
-        coarse, window, gc_decision = _coarsen(
+        coarse, window, gc_decision, _ = _coarsen(
             cfg, state, window, aux["coarsen_decide"], aux["gc_decision"])
         if coarse is not None:
             I.reintegrate_blocks(cfg, table, pool, cam, pc_depth, rgb_img,
@@ -103,7 +104,7 @@ def integrate_rgbd(cfg: MapConfig, state: MapState, cam: C.Camera,
     state.frame += 1
     with stage("rgbd.stats"):
         return state, _stats(state, count, bres, alloc, coarse, freed,
-                             syncs0)
+                             syncs0, window_cut=cut)
 
 
 def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
@@ -126,7 +127,19 @@ def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
     starve scan collects on the post-starve weights as the reference's
     does.  Returns (state, stats) as integrate_rgbd's; a point-centric
     scan's stats also hold the walk's visited voxels and their distinct
-    blocks (visited_keys, distinct_keys)."""
+    blocks (visited_keys, distinct_keys).
+
+    The window holds every block, except on K3's update of a spherical
+    sensor with starvation and GC off (_window_reach): there it holds the
+    blocks within the sensor's reach, beyond which no voxel changes
+    (ops/integrate.py::blocks_within), so the map is the one a window of
+    every block gives.  A block beyond reach decides as it did when last
+    inside, so only the decisions that stand need carrying: those
+    max_coarsen_per_frame left unserved, and scan 0's (which does not
+    coarsen), are kept by slot in state.coarsen_pending (_carry), with
+    the blocks streamed back in (mark_streamed_in), and join the next
+    window, which takes them in slot order as a window of every block
+    would."""
     table, pool = state.table, state.pool
     syncs0 = COUNTS[SYNCS]
     mdist = float(cfg.max_integration_distance)
@@ -141,9 +154,15 @@ def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
         alloc = I.alloc_blocks(cfg, table, keys, valid, state.frame, scratch)
 
     # no frustum filter: the scan sees all around (the reference's
-    # compact_active without a camera)
+    # compact_active without a camera), as far as the sensor's reach
+    bound = _window_reach(cfg, cam)
     with stage("points.compact_active"):
-        window = I.compact_active(cfg, table)
+        if bound is None:
+            window, cut = I.compact_window(cfg, table)
+        else:
+            with stage("points.reach"):
+                window, cut = I.compact_window(cfg, table, cam, bound,
+                                               state.coarsen_pending)
     count = int(window[0].numel())
     walk = {}
     if cfg.projective_sdf:
@@ -158,9 +177,13 @@ def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
         decide = (I.coarsen_decide(cfg, pool, *window[2:])
                   if cfg.sdf_var_threshold > 0.0 else None)
         gc_flags = None
+    carried = None
     with stage("points.coarsen"):
-        coarse, window, gc_flags = _coarsen(cfg, state, window, decide,
-                                            gc_flags)
+        coarse, left, gc_flags, served = _coarsen(cfg, state, window,
+                                                  decide, gc_flags)
+        if bound is not None and cfg.sdf_var_threshold > 0.0:
+            carried = _carry(cfg, state, cam, bound, window, decide, served)
+        window = left
     n = cfg.n_frames_invalidate_voxels
     freed = 0
     if n > 0:
@@ -178,30 +201,77 @@ def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
     state.frame += 1
     with stage("points.stats"):
         stats = _stats(state, count, window[3], alloc, coarse, freed,
-                       syncs0)
+                       syncs0, window_cut=cut, carried=carried)
     stats.update(walk)
     return state, stats
 
 
+def _window_reach(cfg: MapConfig, cam: C.Camera):
+    """The LiDAR window's bound in metres (I.sensor_reach) on K3's update
+    of a spherical sensor with starvation and GC off, else None: the
+    window holds every block, as the reference's, for the point-centric
+    walk and where the starve z-buffer takes the front-most voxel at any
+    range."""
+    if (cam.model != C.SPHERICAL or not cfg.projective_sdf
+            or cfg.n_frames_invalidate_voxels > 0):
+        return None
+    return I.sensor_reach(cfg)
+
+
+def mark_streamed_in(cfg: MapConfig, state: MapState, cam: C.Camera,
+                     slots):
+    """Where the window is bounded to the sensor's reach (_window_reach),
+    mark `slots`, the entries a stream-in filled, in
+    state.coarsen_pending: back on the card, a block takes its coarsening
+    decision again on the next scan, wherever it lies, as a window of
+    every block would take it."""
+    if _window_reach(cfg, cam) is not None and cfg.sdf_var_threshold > 0.0:
+        coarsen_pending(state).index_fill_(0, slots, True)
+
+
+def _carry(cfg: MapConfig, state: MapState, cam: C.Camera, bound, window,
+           decide, served):
+    """Record the window's coarsening decisions that stand for the next
+    scan, by slot in state.coarsen_pending: each entry's decision less
+    the ones coarsening served (`served`, None where it did not run);
+    the marks of slots outside the window are kept.  Returns the decisions
+    served from beyond reach (a device count), or None."""
+    slots = window[0]
+    left = decide if served is None else decide & ~served
+    coarsen_pending(state).index_put_((slots,), left)
+    if served is None:
+        return None
+    return (served & ~I.blocks_within(cfg, cam, window[1], bound)).sum()
+
+
 def _stats(state: MapState, count: int, bres, alloc=(0, 0), coarse=None,
-           gc_freed: int = 0, syncs0: int | None = None):
+           gc_freed: int = 0, syncs0: int | None = None,
+           window_cut: int = 0, carried=None):
     """The reference's stats keys, as Python ints (one device sync);
     res0_blocks counts the res-0 entries of the window that stayed after
     coarsening.  Then the frame's counters, host ints the step already
     has: alloc_keys and alloc_new, the deduped keys submitted to insert
     and the blocks it drew (I.alloc_blocks' `alloc`); coarsened, the
     res-0 entries coarsening served (`coarse`, None when it did not run);
-    gc_freed, the blocks GC freed (0 with GC off); host_syncs, the sync
-    sites passed since the reading syncs0 of COUNTS (utils/profiler.py),
-    this one's included (this one alone without syncs0)."""
+    gc_freed, the blocks GC freed (0 with GC off); window_cut, the
+    occupied entries the window's cap (max_active_blocks) left out;
+    coarsen_carried, the decisions coarsening served from beyond the
+    sensor's reach (`carried`, a device count read in this sync, or None);
+    host_syncs, the sync sites passed since the reading syncs0 of COUNTS
+    (utils/profiler.py), this one's included (this one alone without
+    syncs0)."""
     table = state.table
     if syncs0 is None:
         syncs0 = COUNTS[SYNCS]
-    total, res0 = host_list(torch.stack([(table.ptr != P.FREE_ENTRY).sum(),
-                                         (bres == 0).sum()]))
+    counts = [(table.ptr != P.FREE_ENTRY).sum(), (bres == 0).sum()]
+    if carried is not None:
+        counts.append(carried)
+    total, res0, *far = host_list(torch.stack(counts))
     return dict(occupied_blocks=count, occupied_total=total,
                 high_free=table.high_count, low_free=table.low_count,
                 frame=state.frame, unserved_blocks=0, res0_blocks=res0,
                 alloc_keys=alloc[0], alloc_new=alloc[1],
                 coarsened=0 if coarse is None else int(coarse[0].shape[0]),
-                gc_freed=gc_freed, host_syncs=since(syncs0))
+                gc_freed=gc_freed, window_cut=window_cut,
+                coarsen_carried=far[0] if far else 0,
+                host_syncs=since(syncs0))

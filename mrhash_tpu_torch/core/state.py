@@ -100,6 +100,19 @@ class MapState:
     table: H.HashTable
     pool: VoxelPool
     frame: int = 0   # num_integrated_frames_
+    # bool[capacity] or None: the slots whose coarsening decision is taken
+    # again on the next LiDAR scan even beyond the sensor's reach
+    # (core/pipeline.py::integrate_points)
+    coarsen_pending: torch.Tensor = None
+
+
+def coarsen_pending(state: MapState):
+    """state.coarsen_pending, made (no slot marked) on first use."""
+    if state.coarsen_pending is None:
+        state.coarsen_pending = torch.zeros(
+            state.table.capacity, dtype=torch.bool,
+            device=state.table.ptr.device)
+    return state.coarsen_pending
 
 
 def make_state(num_blocks: int, num_buckets: int | None = None,

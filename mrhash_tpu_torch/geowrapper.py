@@ -29,8 +29,10 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import math
 import os
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -45,6 +47,7 @@ from mrhash_tpu_torch.core.streaming import (ChunkGrid, Streamer,
 from mrhash_tpu_torch.gs.container import GaussianContainer
 from mrhash_tpu_torch.ops import camera as C
 from mrhash_tpu_torch.ops import hashtable as H
+from mrhash_tpu_torch.ops import integrate as I
 from mrhash_tpu_torch.ops import meshing as M
 from mrhash_tpu_torch.utils import plyio
 from mrhash_tpu_torch.utils.profiler import (COUNTS, SYNCS, Profiler, since,
@@ -174,6 +177,7 @@ class GeoWrapper:
         self._weights = None
         self._high_free = self.cfg.num_blocks
         self.last_stats = None
+        self._warned_cut = False
         self.mesh_stats = {}     # the last extractMesh's figures
         self.integration_profiler = Profiler("integration_profiler",
                                              profiling)
@@ -317,7 +321,10 @@ class GeoWrapper:
     def compute(self):
         """Per-frame step (geowrapper.cpp:118-148).  last_stats holds the
         step's stats (core/pipeline.py::_stats), with host_syncs counted
-        from the upload of the pose and the frame on."""
+        from the upload of the pose and the frame on.  The first frame
+        whose window the cap (max_active_blocks) cut warns (a
+        RuntimeWarning, once per wrapper); last_stats' window_cut counts
+        the entries each frame left out."""
         if self._high_free <= P.STREAM_THRESHOLD * self.cfg.num_blocks:
             self._stream()
         # setPointCloud and setDepthImage each clear the other's input
@@ -350,6 +357,15 @@ class GeoWrapper:
                         self.cfg, self.state, cam, depth, rgb)
             stats["host_syncs"] = since(syncs0)
             self.last_stats = stats
+            if stats["window_cut"] and not self._warned_cut:
+                self._warned_cut = True
+                warnings.warn(
+                    f"GeoWrapper: frame {stats['frame'] - 1} left "
+                    f"{stats['window_cut']} blocks out of its window, "
+                    f"capped at max_active_blocks = "
+                    f"{self.cfg.max_active_blocks}; they miss the frame's "
+                    "update (last_stats['window_cut'] counts each frame's)",
+                    RuntimeWarning, stacklevel=2)
             self._high_free = stats["high_free"]
             self.integration_profiler.write(stats["occupied_blocks"])
             if self.gs_container is not None and not lidar:
@@ -363,24 +379,35 @@ class GeoWrapper:
         """The stream trigger (geowrapper.cpp:137-138): a budgeted eviction
         of the farthest blocks recovers the free high heap towards
         STREAM_TARGET in one event (mrhash_tpu's plan_evictions), then the
-        host chunks near the camera come back.  The protect radius covers
-        the whole frustum: a wall point at max_depth near the image corner
-        lies max_depth * |(1, tanx, tany)| from the camera, beyond the
-        reference's max_depth radius; +0.5 m absorbs the block-corner
-        distance.  Only the plan, the gather and the clear run here; the
+        host chunks near the camera come back, marked to take their
+        coarsening decision again (core/pipeline.py::mark_streamed_in).  A
+        pinhole camera's protect
+        radius covers the whole frustum: a wall point at max_depth near
+        the image corner lies max_depth * |(1, tanx, tany)| from the
+        camera, beyond the reference's max_depth radius; +0.5 m absorbs
+        the block-corner distance.  A spherical sensor's is its reach
+        (ops/integrate.py::sensor_reach, beyond which no voxel changes)
+        plus a block's diagonal, since eviction measures from the block's
+        corner.  Only the plan, the gather and the clear run here; the
         copy to the host and the ingest overlap the next frames, and the
         next trigger joins them (PORT_NOTES.md P37)."""
         need = int(P.STREAM_TARGET * self.cfg.num_blocks) - self._high_free
         need = min(need, 4096, self.streamer.staging)
         c = self.camera
-        tanx = c.cols / (2.0 * c.fx)           # f32, as the reference
-        tany = c.rows / (2.0 * c.fy)
-        protect = float(c.max_depth * torch.sqrt(1.0 + tanx * tanx
-                                                 + tany * tany) + 0.5)
+        if c.model == C.SPHERICAL:
+            protect = I.sensor_reach(self.cfg) + math.sqrt(3.0) * (
+                P.SDF_BLOCK_SIZE * self.cfg.virtual_voxel_size)
+        else:
+            tanx = c.cols / (2.0 * c.fx)           # f32, as the reference
+            tany = c.rows / (2.0 * c.fy)
+            protect = float(c.max_depth * torch.sqrt(1.0 + tanx * tanx
+                                                     + tany * tany) + 0.5)
         with self.streaming_profiler.event():
             self.state = self.streamer.stream(self.state, self.curr_trans,
                                               protect, budget=max(need, 0),
                                               asynchronous=True)
+            pipeline.mark_streamed_in(self.cfg, self.state, c,
+                                      self.streamer.filled_slots)
         self.streaming_profiler.write(self.streamer.grid.num_blocks())
         # a host int, fresh after the stream (ROADMAP C3)
         self._high_free = self.state.table.high_count

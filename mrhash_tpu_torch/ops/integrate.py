@@ -65,6 +65,46 @@ def blocks_in_frustum_approx(cam: C.Camera, block_pos, vvs):
     return depth_ok & inside
 
 
+def sensor_reach(cfg: MapConfig) -> float:
+    """max_integration_distance plus the truncation there (metres): on a
+    projective LiDAR scan no voxel farther from the sensor changes
+    (blocks_within)."""
+    m = float(cfg.max_integration_distance)
+    return m + X.get_truncation(m, cfg.sdf_truncation,
+                                cfg.sdf_truncation_scale)
+
+
+def blocks_within(cfg: MapConfig, cam: C.Camera, block_pos, reach: float):
+    """bool[...]: the blocks whose nearest point lies within `reach`
+    metres of the sensor (cam's position), a block being the cube
+    [corner, corner + 8 voxels).
+
+    On K3's projective update a voxel changes only where its pixel is
+    valid, which needs its range within [min_depth, max_depth], and only
+    where the return there lies in (0, max_integration_distance] with
+    return - range > -truncation; so no voxel beyond
+    max_integration_distance + truncation (sensor_reach) changes, and the
+    truncation's margin holds the float32 rounding of the range.  K3's
+    flags read an entry's own voxels alone, so a block beyond reach
+    decides as it did when last inside.
+
+    In block units, per axis: the block's offset from the sensor's block
+    is exact in float32 and the sensor's place in its block is taken off
+    once, so the test errs by under 1e-4 block near reach; the bound is
+    widened by 1e-3 block, which admits no block whose voxels can
+    change.  A few launches over the table's slots: the host issues every
+    one on each scan."""
+    side = P.SDF_BLOCK_SIZE * cfg.virtual_voxel_size
+    o = cam.trans.to(torch.float64) / side
+    base = torch.floor(o)
+    off = (o - base - 0.5).to(torch.float32)    # sensor - its block's centre
+    centre = torch.sub(block_pos, base.to(torch.float32)).sub_(off)
+    # per axis |centre - sensor| less half a block, at least 0 (its sign
+    # kept)
+    d = torch.nn.functional.softshrink(centre, 0.5)
+    return torch.linalg.vector_norm(d, dim=-1) <= reach / side + 1e-3
+
+
 # ---------------------------------------------------------------------------
 # DDA candidate generation
 # ---------------------------------------------------------------------------
@@ -362,10 +402,29 @@ def compact_active(cfg: MapConfig, table: H.HashTable, cam: C.Camera = None):
     slots (inside the padded frustum when `cam` is given), in slot order,
     capped at cfg.max_active_blocks.  Returns (slots i64[A], bpos, bptr,
     bres)."""
-    inside = (None if cam is None else
-              blocks_in_frustum_approx(cam, table.pos, cfg.virtual_voxel_size))
-    slots = H.compact(table, inside, int(cfg.max_active_blocks))
-    return slots, table.pos[slots], table.ptr[slots], table.res[slots]
+    return compact_window(cfg, table, cam)[0]
+
+
+def compact_window(cfg: MapConfig, table: H.HashTable, cam: C.Camera = None,
+                   reach: float = None, carried=None):
+    """compact_active's window, and the occupied entries its cap left out
+    (a host int from the compaction's one sync).  With `reach` (metres)
+    the window holds, in place of the frustum, the blocks within it of
+    cam's sensor (blocks_within) and those `carried` marks (bool[capacity]
+    or None)."""
+    inside = None
+    if reach is not None:
+        inside = blocks_within(cfg, cam, table.pos, reach)
+        if carried is not None:
+            inside |= carried
+    elif cam is not None:
+        inside = blocks_in_frustum_approx(cam, table.pos,
+                                          cfg.virtual_voxel_size)
+    every = H.compact(table, inside, table.capacity)
+    k = int(cfg.max_active_blocks)
+    slots = every[:k]
+    window = (slots, table.pos[slots], table.ptr[slots], table.res[slots])
+    return window, max(every.numel() - k, 0)
 
 
 def _block_rows(bptr):

@@ -141,7 +141,7 @@ def sharded_integrate_rgbd(cfg: MapConfig, group):
         count = int(window[0].numel())
         aux = I.fused_integrate_depth(lcfg, pool, cam, pc_depth, rgb,
                                       *window[1:])
-        coarse, window, gc_decision = pipeline._coarsen(
+        coarse, window, gc_decision, _ = pipeline._coarsen(
             lcfg, state, window, aux["coarsen_decide"], aux["gc_decision"])
         if coarse is not None:
             I.reintegrate_blocks(lcfg, table, pool, cam, pc_depth, rgb,

@@ -1,11 +1,14 @@
 """The frame step's spans and counters (utils/profiler.py: stage(),
 COUNTS) through GeoWrapper.compute.
 
-Three paths: tests/test_torch_multires.py's 64x256 multi-res RGB-D frames
+Four paths: tests/test_torch_multires.py's 64x256 multi-res RGB-D frames
 (GC every frame, a starve on frame 3), tests/test_torch_lidar.py's 16x128
-single-resolution LiDAR scans through K3 (GC off), and the same scans
+single-resolution LiDAR scans through K3 (GC off), the same scans
 through the point-centric walk with MADtree normals, starving and
-collecting every 2 scans.  The CPU cases run 3 frames under
+collecting every 2 scans, and the same scans at multi-resolution with
+coarsening held to 4 blocks a scan and the sensor moved 60 m on from
+scan 2, so the window bounded to the sensor's reach serves decisions
+carried from beyond it.  The CPU cases run 3 frames under
 torch.profiler (CPU activity) and hold:
 
 - every span opens once a frame (alloc.* once an allocation round; a
@@ -15,8 +18,10 @@ torch.profiler (CPU activity) and hold:
   blocks change by alloc_new - gc_freed (coarsening frees and inserts one
   block for each it serves), so at one resolution with GC off by alloc_new
   alone, the empty map's first frame included; coarsened > 0 on a frame
-  where res0_blocks falls; host_syncs a positive int, equal on a second run
-  of the same frames without the profiler, as are the other keys.
+  where res0_blocks falls; on the moved scan a window smaller than the
+  map and coarsen_carried > 0; window_cut 0; host_syncs a positive int,
+  equal on a second run of the same frames without the profiler, as are
+  the other keys.
 
 The `gpu` cases (`python -m pytest --noconftest -m gpu
 tests/test_torch_tracing.py` on the card) hold host_syncs, frame by
@@ -25,6 +30,9 @@ frame, equal to the profiler's count of the runtime's synchronizations
 allocation on its kernels K7-K9 (one counted host read a round, their
 launches counted every frame).
 """
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 from torch.autograd import DeviceType
@@ -41,7 +49,7 @@ from mrhash_tpu_torch.utils.profiler import COUNTS
 OLD_KEYS = {"occupied_blocks", "occupied_total", "high_free", "low_free",
             "frame", "unserved_blocks", "res0_blocks"}
 NEW_KEYS = {"alloc_keys", "alloc_new", "coarsened", "gc_freed",
-            "host_syncs"}
+            "window_cut", "coarsen_carried", "host_syncs"}
 # span: its parent
 SPANS = {
     "rgbd": {"compute": None, "compute.upload": "compute",
@@ -57,6 +65,7 @@ SPANS = {
               "alloc.dedup": "points.alloc_blocks",
               "alloc.insert": "points.alloc_blocks",
               "points.compact_active": "compute",
+              "points.reach": "points.compact_active",
               "points.raster": "compute", "points.projection": "compute",
               "points.K3": "compute", "points.coarsen": "compute",
               "points.stats": "compute"},
@@ -68,7 +77,9 @@ SPANS = {
                "points.compact_active": "compute", "points.walk": "compute",
                "points.coarsen": "compute", "points.starve": "compute",
                "points.gc": "compute", "points.stats": "compute"}}
+SPANS["reach"] = SPANS["lidar"]
 ONCE = {"points.starve"}       # frame 2 of 3
+MOVED = 2                      # the reach path's sensor moves on here
 ALLOC = ("alloc_walk", "alloc_compact", "alloc_insert")   # K7, K8, K9
 
 
@@ -99,6 +110,7 @@ def _wrapper(path, device):
         gw = GeoWrapper(cfg["sdf_truncation"], 0.0, 1,
                         cfg["virtual_voxel_size"], 2 if walk else 0, 1,
                         min_depth=0.2, max_depth=LI.MAX_D,
+                        sdf_var_threshold=1.0 if path == "reach" else 0.0,
                         num_blocks=cfg["num_blocks"],
                         num_buckets=cfg["num_buckets"],
                         max_active_blocks=cfg["max_active_blocks"],
@@ -107,9 +119,13 @@ def _wrapper(path, device):
                         device=device)
         gw.setCamera(*LI.CAM, camera_model=C.SPHERICAL)
         scans = LI._frames()
+        if path == "reach":
+            gw.cfg = dataclasses.replace(gw.cfg, max_coarsen_per_frame=4)
 
         def feed(i):
             t, pts = scans[i % len(scans)]
+            if path == "reach" and i >= MOVED:
+                t = t + np.float32([60.0, 0.0, 0.0])
             gw.setCurrPose(t, [0.0, 0.0, 0.0, 1.0])
             gw.setPointCloud(pts, LI._normals(i % len(scans)) if walk
                              else False)
@@ -142,7 +158,7 @@ def _run(path, n, traced):
     return stats, ranges, occupied
 
 
-@pytest.mark.parametrize("path", ["rgbd", "lidar", "points"])
+@pytest.mark.parametrize("path", ["rgbd", "lidar", "points", "reach"])
 def test_spans_and_counters_of_the_frame_step(path, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)     # the wrapper writes its memory report
     n = 3
@@ -168,8 +184,14 @@ def test_spans_and_counters_of_the_frame_step(path, tmp_path, monkeypatch):
         prev = st["occupied_total"]
     assert stats[0]["occupied_total"] > 0
     assert stats[-1]["occupied_total"] == occupied
+    assert all(st["window_cut"] == 0 for st in stats)
     if path == "lidar":          # one resolution, GC off
         assert all(st["gc_freed"] == st["coarsened"] == 0 for st in stats)
+    elif path == "reach":        # GC off
+        moved = stats[MOVED]
+        assert all(st["gc_freed"] == 0 for st in stats)
+        assert moved["occupied_blocks"] < moved["occupied_total"], stats
+        assert moved["coarsen_carried"] > 0, stats
     elif path == "points":
         assert all(st["coarsened"] == 0 for st in stats)
     else:
@@ -189,7 +211,7 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("path", ["rgbd", "lidar", "points"])
+@pytest.mark.parametrize("path", ["rgbd", "lidar", "points", "reach"])
 def test_host_syncs_match_the_profiler_on_card(path, cuda, tmp_path,
                                                 monkeypatch):
     monkeypatch.chdir(tmp_path)
