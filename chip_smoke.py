@@ -18,7 +18,10 @@ Phases (any failure raises: non-zero exit, no result line):
                64x1024, the res-1 entries alone and the whole multi-res
                window in one launch; K4, K5: the GS training render of frame 1 of phase
                6's scene, 1200x680, K = 64, and K5 again at GSFinalOpt's
-               cap, K = 128), then timed in turns (twin,
+               cap, K = 128; K7-K9: the multi-res orbit's frame 40 and the
+               LiDAR slice's scan 20; K10-K12: a coarsening step of
+               C_SERVED blocks on the LiDAR slice's map, each launch timed
+               alone after the map is restored), then timed in turns (twin,
                kernel, library, library, kernel, twin) by CUDA-graph replay
                and CUDA events; K2 also on phase 11's spherical z-buffer
                (64x1024, after 10 point-centric scans); each whole slice
@@ -40,7 +43,8 @@ Phases (any failure raises: non-zero exit, no result line):
   4. RGB-D   — GeoWrapper(device="cuda") at replica.cfg's settings, 120
                frames of bench.py's box-room orbit (starvation fires on
                frame 100), with the kernels' launch counts taken over that
-               run only; then streamAllOut (phase 9 meshes this path);
+               run only (K10-K12 none: one resolution never coarsens);
+               then streamAllOut (phase 9 meshes this path);
   5. LiDAR   — GeoWrapper(device="cuda") at newer_college.cfg's settings, 40
                scans of a 64x1024 sensor driving 0.5 m per scan past a
                ground plane and a 25 m cylinder wall, with K3's launch
@@ -59,11 +63,13 @@ Phases (any failure raises: non-zero exit, no result line):
   7. multi-res RGB-D — phase 4 at tools/bench_extra.py::bench_multires's
                settings (sdf_var_threshold 1.0, 2^13 allocations per
                frame): frames/s, res-0 and res-1 block counts, peak memory,
-               K1's res-0 and res-1 launches and K2's over that run; then
-               the mesh on the walls;
+               K1's res-0 and res-1 launches, K2's and K10-K12's (at least
+               one each: the map coarsens) over that run; then the mesh
+               on the walls;
   8. multi-res LiDAR — phase 5 at bench_lidar(multires=True)'s settings
                (sdf_var_threshold 1.0, 512 coarsenings per scan): scans/s,
-               res-1 blocks, K3's res-0 and res-1 launches; then the mesh;
+               res-1 blocks, K3's res-0 and res-1 launches and K10-K12's
+               (at least one each); then the mesh;
   9. streaming walk — tools/bench_walk.py's settings (1200x680, 1 cm, max
                depth 4 m, 2^16 blocks): 150 + 120 frames down the 1.5 m
                square tube at 8 cm/frame, so the watermark fires and the
@@ -177,6 +183,7 @@ K3_NAMES = ("fused_integrate_points_rows",
             "fused_integrate_points_rows_res1")
 ALLOC_NAMES = ("alloc_walk", "alloc_scatter", "alloc_compact", "alloc_lookup",
                "alloc_insert")
+COARSEN_NAMES = ("coarsen_select", "coarsen_merge", "coarsen_scatter")
 
 
 def reset_launches(*names):
@@ -209,6 +216,8 @@ L_WALL, L_GROUND = 25.0, -1.5   # cylinder radius, ground height (metres)
 L_TOL = 0.3                     # mesh: vertices within 0.3 m of a surface
 L_STARVE = 10                   # phase 11: starve every 10 scans (the cfg: 0)
 L_TIMED = 30                    # phase 11: scans/s over the last 30 scans
+C_SERVED = 32                   # phase 3: coarsenings a step (the drive's)
+SPIN_CYCLES = 2_000_000         # ~1 ms of a spin kernel ahead of a timed launch
 
 # GS: tools/bench_gs.py's protocol (BENCH_GS.json rows for the PSNR bar)
 GS_PARAMS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -703,6 +712,140 @@ def compare_alloc_kernels(depths, rgb, clouds):
     out["alloc_walk_points"] = dict(kernel_record(
         t, 0, N * 12 + M * 13 + S * 4, N * (60 + 25 * steps)),
         rays=N, candidates=M)
+    return out
+
+
+def clone_state(st):
+    from mrhash_tpu_torch.core.state import MapState, VoxelPool
+    return MapState(table=clone_table(st.table),
+                    pool=VoxelPool(**{f: getattr(st.pool, f).clone()
+                                      for f in VoxelPool.FIELDS}),
+                    frame=st.frame)
+
+
+def restore_state(dst, src):
+    """Copy src's table and pool into dst's tensors (in place)."""
+    from mrhash_tpu_torch.core.state import VoxelPool
+    for f in ("pos", "ptr", "res", "fp", "heap_high", "heap_low"):
+        getattr(dst.table, f).copy_(getattr(src.table, f))
+    dst.table.high_count = src.table.high_count
+    dst.table.low_count = src.table.low_count
+    for f in VoxelPool.FIELDS:
+        getattr(dst.pool, f).copy_(getattr(src.pool, f))
+
+
+def compare_coarsen_kernels(clouds):
+    """K10, K11 and K12 (coarsening, csrc/coarsen_blocks.cu) against their
+    twin (integrate.coarsen_by_variance_ref) on a step like the drive's:
+    the LiDAR slice fused at one resolution for L_COMPARE_AT scans, its
+    window of every block, the decisions under MR_THRESHOLD, C_SERVED
+    served a step (the drive coarsens ~25-30 fresh blocks a scan) after
+    one step that filled the low heap (so no split).  The table, heaps,
+    served entries, weight and colour equal, sdf and sumsq within TOL.
+    Then each kernel's time, a launch timed alone with CUDA events behind
+    a spin kernel (so the events time the device, not the host's enqueue)
+    after the map is restored, beside its bound, and the whole step on
+    the kernels (its two host reads included) beside the twin's, both
+    eager.  Returns {name: record}."""
+    import dataclasses
+
+    import torch
+
+    from mrhash_tpu_torch.ops import alloc_blocks as AB
+    from mrhash_tpu_torch.ops import coarsen_blocks as CB
+    from mrhash_tpu_torch.ops import integrate as I
+
+    gw = make_lidar_wrapper("cuda", clouds[0])
+    for i in range(L_COMPARE_AT):
+        feed_lidar(gw, i, clouds)
+    cfg = dataclasses.replace(gw.cfg, sdf_var_threshold=MR_THRESHOLD,
+                              max_coarsen_per_frame=C_SERVED)
+    base = clone_state(gw.state)
+    del gw
+    torch.cuda.empty_cache()
+    slots, bpos, bptr, bres = I.compact_window(cfg, base.table)[0]
+    decide = I.coarsen_decide(cfg, base.pool, bptr, bres)
+    first = I.coarsen_by_variance(cfg, base.table, base.pool, slots, bpos,
+                                  decide)[2]
+    decide = decide & ~first
+    n_dec, a = int(decide.sum()), slots.shape[0]
+    tk, tr = clone_state(base), clone_state(base)
+    got = I.coarsen_by_variance(cfg, tk.table, tk.pool, slots, bpos, decide)
+    ref = I.coarsen_by_variance_ref(cfg, tr.table, tr.pool, slots, bpos,
+                                    decide)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r), "K10-K12 served entries"
+    for f in ("pos", "ptr", "res", "fp", "heap_high", "heap_low"):
+        assert torch.equal(getattr(tk.table, f), getattr(tr.table, f)), f
+    assert (tk.table.high_count, tk.table.low_count) == (
+        tr.table.high_count, tr.table.low_count)
+    err = {}
+    for f in ("weight", "rgbp", "sdf", "sumsq"):
+        x, y = getattr(tk.pool, f), getattr(tr.pool, f)
+        err[f] = float((x - y).abs().max())
+        assert err[f] <= TOL.get(f, 0), (f, err[f])
+    n = int(got[2].sum())
+    log(f"compare K10/K11/K12: LiDAR scan {L_COMPARE_AT} at one "
+        f"resolution, window {a} blocks, {n_dec} decided, {n} served; "
+        f"kernels equal their twin (sdf {err['sdf']:.3g}, sumsq "
+        f"{err['sumsq']:.3g} apart)")
+    del tr
+    work = tk
+    ms = {k: [] for k in ("select", "merge", "scatter", "step", "twin")}
+
+    def timed(fn, spin=True):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        if spin:                # the device busy while the host enqueues
+            torch.cuda._sleep(SPIN_CYCLES)
+        e0.record()
+        out = fn()
+        e1.record()
+        return out, (e0, e1)
+
+    for _ in range(TURNS):
+        restore_state(work, base)
+        (freed, keys, fptr, fres, stats), t10 = timed(
+            lambda: CB.select(cfg, work.table, slots, bpos, decide))
+        m, work.table.high_count, work.table.low_count, _ = \
+            stats.tolist()
+        stage, t11 = timed(lambda: CB.merge(cfg, work.pool, fptr, fres, m))
+        info, _ = AB.insert(work.table, keys[:m], 1)
+        _, t12 = timed(lambda: CB.scatter(work.pool, stage, info["was_new"],
+                                          info["ptr"]))
+        torch.cuda.synchronize()
+        for k, (e0, e1) in zip(("select", "merge", "scatter"),
+                               (t10, t11, t12)):
+            ms[k].append(e0.elapsed_time(e1))
+        for k, fn in (("step", I.coarsen_by_variance),
+                      ("twin", I.coarsen_by_variance_ref)):
+            restore_state(work, base)
+            torch.cuda.synchronize()
+            _, (e0, e1) = timed(lambda: fn(cfg, work.table, work.pool,
+                                           slots, bpos, decide), spin=False)
+            torch.cuda.synchronize()
+            ms[k].append(e0.elapsed_time(e1))
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    # bytes, each read or written once: K10 the decisions and the freed
+    # mask (1 B an entry), per served entry its slot (8 B), key (12 B),
+    # ptr and res (8 B) read, the table's pos, ptr, res, fp (24 B), its
+    # key row, ptr and res (20 B) and its heap id (4 B) written; K11 per
+    # served block 512 voxels of 16 B read and cleared, 64 staged; K12 64
+    # voxels of 16 B read and written, the block's flag and ptr
+    nb = dict(select=2 * a + n * (8 + 12 + 8 + 24 + 20 + 4),
+              merge=n * (2 * 512 * 16 + 64 * 16),
+              scatter=n * (2 * 64 * 16 + 5))
+    out = {}
+    for k, name in (("select", "coarsen_select"), ("merge", "coarsen_merge"),
+                    ("scatter", "coarsen_scatter")):
+        out[name] = dict(kernel_record(
+            dict(kernel=med[k], twin=med["twin"], library=None),
+            err["sdf"] if k != "select" else 0, nb[k], 0),
+            window=a, served=n, step_ms=med["step"])
+    log(f"compare K10/K11/K12: {med['select']:.4f} / {med['merge']:.4f} / "
+        f"{med['scatter']:.4f} ms alone; the step on the kernels "
+        f"{med['step']:.4f} ms with its two host reads, the twin "
+        f"{med['twin']:.4f} ms (eager, its host reads included)")
     return out
 
 
@@ -1942,6 +2085,17 @@ def run_walk(device="cuda", rows=ROWS, cols=COLS, f=FX, warm=W_WARM,
 # phase 4: the RGB-D path
 # ---------------------------------------------------------------------------
 
+def check_coarsen_launches(launches, multires):
+    """K10-K12 over a phase's frames: each launched on a multi-res path
+    (K11 and K12 on every coarsening step, as the configs downsample), none
+    on a single-res one, which never coarsens."""
+    coarsen = {k: launches[k] for k in COARSEN_NAMES}
+    if multires:
+        assert min(coarsen.values()) >= 1, coarsen
+    else:
+        assert max(coarsen.values()) == 0, coarsen
+
+
 def res1_blocks(gw):
     """Res-1 blocks in the wrapper's table."""
     t = gw.state.table
@@ -1951,8 +2105,9 @@ def res1_blocks(gw):
 def run_slice(depths, rgb, multires=False, mesh=True):
     """Phase 4 (or 7 with multires): N_FRAMES frames of the box-room orbit
     through GeoWrapper.compute, then streamAllOut and, with `mesh`,
-    extractMesh (the host sweep).  Returns (launches of K1's paths and K2
-    over the frames, numbers, the wrapper)."""
+    extractMesh (the host sweep).  Returns (launches of K1's paths, K2,
+    allocation's K7-K9 and coarsening's K10-K12 over the frames, numbers,
+    the wrapper)."""
     import numpy as np
     import torch
 
@@ -1961,7 +2116,7 @@ def run_slice(depths, rgb, multires=False, mesh=True):
     gw = make_wrapper("cuda", multires)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(*K1_NAMES, *ALLOC_NAMES)
+    reset_launches(*K1_NAMES, *ALLOC_NAMES, *COARSEN_NAMES)
     frame_ms, occupied = [], []
     for i in range(N_FRAMES):
         t0 = time.perf_counter()
@@ -1969,7 +2124,7 @@ def run_slice(depths, rgb, multires=False, mesh=True):
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         occupied.append(gw.last_stats["occupied_blocks"])
-    launches = launch_counts(*K1_NAMES, *ALLOC_NAMES)
+    launches = launch_counts(*K1_NAMES, *ALLOC_NAMES, *COARSEN_NAMES)
     # one allocation round a frame, all of it on the kernels (coarsening
     # inserts through K9 too)
     assert launches["alloc_walk"] == launches["alloc_compact"] == N_FRAMES
@@ -1997,6 +2152,7 @@ def run_slice(depths, rgb, multires=False, mesh=True):
     else:
         assert launches["fused_integrate_rows"] == N_FRAMES, launches
         assert launches["fused_integrate_rows_res1"] == 0, launches
+    check_coarsen_launches(launches, multires)
 
     numbers = dict(median_ms=statistics.median(steady),
                    fps=1e3 / statistics.fmean(steady), peak_gib=peak / 2**30,
@@ -2037,7 +2193,8 @@ def run_slice(depths, rgb, multires=False, mesh=True):
 def run_lidar(clouds, multires=False):
     """Phase 5 (or 8 with multires): L_FRAMES scans through
     GeoWrapper.compute, then streamAllOut + extractMesh.  Returns
-    (launches of K3's paths over the scans, numbers)."""
+    (launches of K3's paths over the scans, numbers: K7-K9's and K10-K12's
+    launches among them)."""
     import torch
 
 
@@ -2045,7 +2202,7 @@ def run_lidar(clouds, multires=False):
     gw = make_lidar_wrapper("cuda", clouds[0], multires)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(*K3_NAMES, *ALLOC_NAMES)
+    reset_launches(*K3_NAMES, *ALLOC_NAMES, *COARSEN_NAMES)
     frame_ms, occupied = [], []
     for i in range(L_FRAMES):
         t0 = time.perf_counter()
@@ -2055,6 +2212,7 @@ def run_lidar(clouds, multires=False):
         occupied.append(gw.last_stats["occupied_blocks"])
     launches = launch_counts(*K3_NAMES)
     alloc = launch_counts(*ALLOC_NAMES)
+    coarsen = launch_counts(*COARSEN_NAMES)
     assert alloc["alloc_walk"] == alloc["alloc_compact"] == L_FRAMES, alloc
     assert alloc["alloc_insert"] >= L_FRAMES, alloc
     peak = torch.cuda.max_memory_allocated()
@@ -2079,9 +2237,10 @@ def run_lidar(clouds, multires=False):
     else:
         assert launches["fused_integrate_points_rows"] == L_FRAMES, launches
         assert launches["fused_integrate_points_rows_res1"] == 0, launches
+    check_coarsen_launches(coarsen, multires)
 
     lidar_mesh(gw, tag)
-    return launches, dict(alloc_launches=alloc,
+    return launches, dict(alloc_launches=alloc, coarsen_launches=coarsen,
                           median_ms=statistics.median(steady),
                           mean_ms=statistics.fmean(steady),
                           fps=1e3 / statistics.fmean(steady),
@@ -2753,9 +2912,11 @@ def compare_small_setters():
     2e-5, sumsq within 5e-4, over more than 10,000 weighted voxels."""
     import numpy as np
     (mc, sc), (mg, sg) = setter_scene("cpu"), setter_scene("cuda")
-    # host_syncs counts the sync sites of each device's own path: the
-    # card's allocation runs kernels K7-K9 with one host read a round
-    sc, sg = ([{k: v for k, v in st.items() if k != "host_syncs"}
+    # host_syncs and coarsen_syncs count the sync sites of each device's
+    # own path: the card's allocation runs kernels K7-K9 with one host read
+    # a round, its coarsening K10-K12 with two
+    sc, sg = ([{k: v for k, v in st.items()
+                if k not in ("host_syncs", "coarsen_syncs")}
                for st in stats] for stats in (sc, sg))
     assert sc == sg, (sc, sg)
     seen = []
@@ -3390,6 +3551,8 @@ def main():
     torch.cuda.empty_cache()
     ka = compare_alloc_kernels(depths, rgb, clouds)
     torch.cuda.empty_cache()
+    ka.update(compare_coarsen_kernels(clouds))
+    torch.cuda.empty_cache()
     for name, k in ka.items():
         log(f"compare: {name} {k['ms']:.4f} ms (twin {k['plain_ms']:.4f} ms "
             f"eager, bound {k['bound_ms']:.4f} ms by {k['bound_by']}, "
@@ -3612,16 +3775,26 @@ def main():
             entry.update({"k128_" + k: k5f[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
         kernels.append(entry)
-    for name, rec in ka.items():     # allocation: no TPU kernel replaced
-        kernels.append(dict(
+    for name, rec in ka.items():     # allocation, coarsening: no TPU
+        coarsen = name in COARSEN_NAMES   # kernel replaced
+        entry = dict(
             name=name, route="cuda",
-            source="mrhash_tpu_torch/csrc/alloc_blocks.cu",
-            replaces="none: the JAX package allocates with jnp ops",
+            source="mrhash_tpu_torch/csrc/" + (
+                "coarsen_blocks.cu" if coarsen else "alloc_blocks.cu"),
+            replaces="none: the JAX package {} with jnp ops".format(
+                "coarsens" if coarsen else "allocates"),
             launches=(lrun["alloc_launches"]["alloc_walk"]
                       if name.endswith("_points") else launches.get(name, 0)),
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},
-            plain_note="the twin timed eagerly, its host reads included"))
+            plain_note="the twin timed eagerly, its host reads included")
+        if coarsen:   # phases 4 and 5 (0: single-res), 7 and 8
+            entry.update(launches=launches[name]
+                         + lrun["coarsen_launches"][name],
+                         multires_launches=dict(
+                             rgbd=mr_launches[name],
+                             lidar=mlrun["coarsen_launches"][name]))
+        kernels.append(entry)
     log(f"smoke: {time.perf_counter() - t_main:.1f} s in all")
     from mrhash_tpu_torch import geowrapper
     print(json.dumps({"mesh": dict(

@@ -20,29 +20,33 @@ from mrhash_tpu_torch.core.state import MapConfig, MapState, coarsen_pending
 from mrhash_tpu_torch.ops import camera as C
 from mrhash_tpu_torch.ops import integrate as I
 from mrhash_tpu_torch.utils.profiler import (COUNTS, SYNCS, host_bool,
-                                             host_list, pick, since, stage)
+                                             host_list, since, stage)
 
 
-def _coarsen(cfg: MapConfig, state: MapState, window, decide, gc_decision):
+def _coarsen(cfg: MapConfig, state: MapState, window, decide):
     """The multi-resolution step after the integrate: when the frame is
     not the first and some res-0 entry decided to coarsen (`decide`, from
     K1's or K3's flags or from the pool), coarsen_by_variance.  Returns
     (new_slots, new_mask) of the coarse blocks, or None, and the window
-    and the per-entry GC decision (or None) without the entries that
-    coarsening freed: the window is not recompacted (the reference's
-    deviation D18), so starvation and GC run on the pre-coarsen window
-    minus the freed entries, and this frame's coarse blocks starve and
-    collect from the next frame on.  Last, the window entries it freed
-    (bool[A], or None where it did not run)."""
+    entries it freed (bool[A], or None where it did not run).  The window
+    is not recompacted (the reference's deviation D18) and keeps the freed
+    entries: their slots are free and their rows cleared, or already a
+    coarse block's, so starvation (starve_voxels' skip), GC (_kept) and
+    the stats' res-0 count skip them, as the reference's pre-coarsen
+    window minus the freed entries; this frame's coarse blocks starve and
+    collect from the next frame on."""
     if cfg.sdf_var_threshold <= 0.0 or state.frame == 0 or not host_bool(
             decide.any()):
-        return None, window, gc_decision, None
-    slots, bpos = window[:2]
+        return None, None
     new_slots, new_mask, freed = I.coarsen_by_variance(
-        cfg, state.table, state.pool, slots, bpos, decide)
-    keep = ~freed
-    return ((new_slots, new_mask), tuple(pick(t, keep) for t in window),
-            None if gc_decision is None else pick(gc_decision, keep), freed)
+        cfg, state.table, state.pool, *window[:2], decide)
+    return (new_slots, new_mask), freed
+
+
+def _kept(decision, freed):
+    """A per-entry decision of the window without the entries coarsening
+    freed (`freed`, or None where it did not run)."""
+    return decision if freed is None else decision & ~freed
 
 
 def integrate_rgbd(cfg: MapConfig, state: MapState, cam: C.Camera,
@@ -82,29 +86,32 @@ def integrate_rgbd(cfg: MapConfig, state: MapState, cam: C.Camera,
 
     # --- variance-adaptive coarsening ---------------------------------------
     with stage("rgbd.coarsen"):
-        coarse, window, gc_decision, _ = _coarsen(
-            cfg, state, window, aux["coarsen_decide"], aux["gc_decision"])
+        c0 = COUNTS[SYNCS]
+        coarse, freed = _coarsen(cfg, state, window, aux["coarsen_decide"])
         if coarse is not None:
             I.reintegrate_blocks(cfg, table, pool, cam, pc_depth, rgb_img,
                                  *coarse)
+        coarsen_syncs = since(c0)
 
     # --- starvation + garbage collection ------------------------------------
     slots, bpos, bptr, bres = window
     n = cfg.n_frames_invalidate_voxels
-    freed = 0
+    gc_freed = 0
     if n > 0:
         with stage("rgbd.starve_gc"):
             if state.frame > 0 and state.frame % n == 0:
-                I.starve_voxels(cfg, pool, cam, bpos, bptr, bres)
+                I.starve_voxels(cfg, pool, cam, bpos, bptr, bres,
+                                skip=freed)
             # GC reads the kernel's flags from BEFORE the starve (reference
             # deviation D12)
-            freed = I.garbage_collect_sweep(cfg, table, pool, slots,
-                                            gc_decision)
+            gc_freed = I.garbage_collect_sweep(
+                cfg, table, pool, slots, _kept(aux["gc_decision"], freed))
 
     state.frame += 1
     with stage("rgbd.stats"):
-        return state, _stats(state, count, bres, alloc, coarse, freed,
-                             syncs0, window_cut=cut)
+        return state, _stats(state, count, bres, alloc, coarse, gc_freed,
+                             syncs0, window_cut=cut, freed=freed,
+                             coarsen_syncs=coarsen_syncs)
 
 
 def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
@@ -179,29 +186,31 @@ def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
         gc_flags = None
     carried = None
     with stage("points.coarsen"):
-        coarse, left, gc_flags, served = _coarsen(cfg, state, window,
-                                                  decide, gc_flags)
+        c0 = COUNTS[SYNCS]
+        coarse, freed = _coarsen(cfg, state, window, decide)
         if bound is not None and cfg.sdf_var_threshold > 0.0:
-            carried = _carry(cfg, state, cam, bound, window, decide, served)
-        window = left
+            carried = _carry(cfg, state, cam, bound, window, decide, freed)
+        coarsen_syncs = since(c0)
     n = cfg.n_frames_invalidate_voxels
-    freed = 0
+    gc_freed = 0
     if n > 0:
         slots, bpos, bptr, bres = window
         starve = state.frame > 0 and state.frame % n == 0
         if starve:
             with stage("points.starve"):
-                I.starve_voxels(cfg, pool, cam, bpos, bptr, bres)
+                I.starve_voxels(cfg, pool, cam, bpos, bptr, bres,
+                                skip=freed)
         with stage("points.gc"):
             if gc_flags is None or starve:
                 gc_flags = I.gc_decide(cfg, cam, pool, bptr, bres)
-            freed = I.garbage_collect_sweep(cfg, table, pool, slots,
-                                            gc_flags)
+            gc_freed = I.garbage_collect_sweep(cfg, table, pool, slots,
+                                               _kept(gc_flags, freed))
 
     state.frame += 1
     with stage("points.stats"):
-        stats = _stats(state, count, window[3], alloc, coarse, freed,
-                       syncs0, window_cut=cut, carried=carried)
+        stats = _stats(state, count, window[3], alloc, coarse, gc_freed,
+                       syncs0, window_cut=cut, carried=carried, freed=freed,
+                       coarsen_syncs=coarsen_syncs)
     stats.update(walk)
     return state, stats
 
@@ -246,24 +255,27 @@ def _carry(cfg: MapConfig, state: MapState, cam: C.Camera, bound, window,
 
 def _stats(state: MapState, count: int, bres, alloc=(0, 0), coarse=None,
            gc_freed: int = 0, syncs0: int | None = None,
-           window_cut: int = 0, carried=None):
+           window_cut: int = 0, carried=None, freed=None,
+           coarsen_syncs: int = 0):
     """The reference's stats keys, as Python ints (one device sync);
     res0_blocks counts the res-0 entries of the window that stayed after
-    coarsening.  Then the frame's counters, host ints the step already
-    has: alloc_keys and alloc_new, the deduped keys submitted to insert
-    and the blocks it drew (I.alloc_blocks' `alloc`); coarsened, the
-    res-0 entries coarsening served (`coarse`, None when it did not run);
-    gc_freed, the blocks GC freed (0 with GC off); window_cut, the
+    coarsening (those `freed` does not mark).  Then the frame's counters, host
+    ints the step already has: alloc_keys and alloc_new, the deduped keys
+    submitted to insert and the blocks it drew (I.alloc_blocks' `alloc`);
+    coarsened, the res-0 entries coarsening served (`coarse`, None when it did
+    not run); gc_freed, the blocks GC freed (0 with GC off); window_cut, the
     occupied entries the window's cap (max_active_blocks) left out;
-    coarsen_carried, the decisions coarsening served from beyond the
-    sensor's reach (`carried`, a device count read in this sync, or None);
-    host_syncs, the sync sites passed since the reading syncs0 of COUNTS
-    (utils/profiler.py), this one's included (this one alone without
-    syncs0)."""
+    coarsen_carried, the decisions coarsening served from beyond the sensor's
+    reach (`carried`, a device count read in this sync, or None);
+    coarsen_syncs, the sync sites passed inside the coarsening step (its stage,
+    the RGB-D reintegration included); host_syncs, the sync sites passed since
+    the reading syncs0 of COUNTS (utils/profiler.py), this one's included (this
+    one alone without syncs0)."""
     table = state.table
     if syncs0 is None:
         syncs0 = COUNTS[SYNCS]
-    counts = [(table.ptr != P.FREE_ENTRY).sum(), (bres == 0).sum()]
+    counts = [(table.ptr != P.FREE_ENTRY).sum(),
+              _kept(bres == 0, freed).sum()]
     if carried is not None:
         counts.append(carried)
     total, res0, *far = host_list(torch.stack(counts))
@@ -274,4 +286,4 @@ def _stats(state: MapState, count: int, bres, alloc=(0, 0), coarse=None,
                 coarsened=0 if coarse is None else int(coarse[0].shape[0]),
                 gc_freed=gc_freed, window_cut=window_cut,
                 coarsen_carried=far[0] if far else 0,
-                host_syncs=since(syncs0))
+                coarsen_syncs=coarsen_syncs, host_syncs=since(syncs0))

@@ -61,6 +61,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "block_scan.cuh"
+
 namespace {
 
 constexpr uint32_t kP0 = 73856093u;
@@ -76,9 +78,8 @@ constexpr float kFloatEps = 1e-6f;
 constexpr float kCoordEps = 1e-5f;
 constexpr int kWalkThreads = 256;
 constexpr int kLookupThreads = 256;
-constexpr int kOneCta = 1024;
+constexpr int kOneCta = kScanCta;
 constexpr int kCellsPerThread = 4;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int64_t kSortPad = INT64_MAX;
 
 __device__ __forceinline__ uint32_t avalanche(uint32_t h) {
@@ -324,35 +325,6 @@ __global__ void __launch_bounds__(kWalkThreads) alloc_scatter_kernel(
   atomicMax(scratch + dedup_cell(keys[3 * i], keys[3 * i + 1],
                                  keys[3 * i + 2], salt, n_cells),
             (int32_t)i);
-}
-
-// Exclusive prefix sum of v over a kOneCta-thread CTA; *total gets the
-// sum.  Every thread of the CTA calls it.
-__device__ int block_scan(int v, int* total) {
-  __shared__ int warp_sum[kOneCta / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sum[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = warp_sum[lane];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(kFull, w, o);
-      if (lane >= o) w += y;
-    }
-    warp_sum[lane] = w;
-  }
-  __syncthreads();
-  const int before = warp ? warp_sum[warp - 1] : 0;
-  *total = warp_sum[kOneCta / 32 - 1];
-  __syncthreads();
-  return before + x - v;
 }
 
 // K8: the occupied scratch cells in cell order, capped at u_max; their

@@ -77,6 +77,18 @@ SIGNATURES = {
     "mrhash_alloc_insert": [_vp, _vp, _i64, _i64, _vp, _i, _i64, _i64,
                             *[_vp] * 5, _i64, _i64, _vp, _i64, _i64,
                             *[_vp] * 9],
+    # decide, slots, bpos, n_window, cap, pos, ptr, res, fp, heap_high,
+    # n_high, high_count, heap_low, n_low, low_count, split_chunk, freed,
+    # keys, fptr, fres, stats, stream
+    "mrhash_coarsen_select": [*[_vp] * 3, _i64, _i64, *[_vp] * 5, _i64,
+                              _i64, _vp, _i64, _i64, _i64, *[_vp] * 6],
+    # fptr, fres, n, sdf, sumsq, weight, rgbp, merge, half_voxel,
+    # weight_max, staged sdf, sumsq, weight, rgbp, stream
+    "mrhash_coarsen_merge": [_vp, _vp, _i64, *[_vp] * 4, _i, _f, _f,
+                             *[_vp] * 5],
+    # was_new, nptr, n, staged sdf, sumsq, weight, rgbp, sdf, sumsq,
+    # weight, rgbp, stream
+    "mrhash_coarsen_scatter": [_vp, _vp, _i64, *[_vp] * 9],
 }
 
 

@@ -25,6 +25,7 @@ from mrhash_tpu_torch.core.state import (LANES, MapConfig, VoxelPool,
                                          window_voxels)
 from mrhash_tpu_torch.ops import alloc_blocks as AB
 from mrhash_tpu_torch.ops import camera as C
+from mrhash_tpu_torch.ops import coarsen_blocks as CB
 from mrhash_tpu_torch.ops import coords as X
 from mrhash_tpu_torch.ops import fused_integrate as FI
 from mrhash_tpu_torch.ops import fused_integrate_points as FIP
@@ -837,18 +838,20 @@ def integrate_points_sdf(cfg: MapConfig, table: H.HashTable, pool: VoxelPool,
 FAR = 1e30   # z-buffer sentinel
 
 
-def starve_mask(cfg: MapConfig, cam: C.Camera, bpos, bres, group=None):
+def starve_mask(cfg: MapConfig, cam: C.Camera, bpos, bres, group=None,
+                skip=None):
     """Geometry half of starveVoxelsKernel (voxel_data_structures.cu:
-    1596-1671): the window-layout [A,512] mask of the front-most window
-    voxel per pixel, over both resolutions.  One-shot over the whole window
-    (PORT_NOTES.md P3).  The z-buffer is a scatter-min; its readback at
-    each voxel's own pixel goes through kernel K2 (ops/sample_image.py), as
-    the reference's fused path reads it back through its image sampler.
-    Voxels tied at the exact front depth all starve (deviation D11 of the
-    reference).  With `group` (a parallel/launch.py RankGroup, the sharded
-    steps) the z-buffer is all_reduce(MIN)-merged across its ranks before
-    the readback, so each rank's winners are the front-most voxels of the
-    whole map."""
+    1596-1671): the window-layout [A,512] mask of the front-most window voxel
+    per pixel, over both resolutions.  One-shot over the whole window
+    (PORT_NOTES.md P3); the entries `skip` (bool[A], or None) marks take no
+    part, as if the window left them out.  The z-buffer is a scatter-min; its
+    readback at each voxel's own pixel goes through kernel K2
+    (ops/sample_image.py), as the reference's fused path reads it back through
+    its image sampler.  Voxels tied at the exact front depth all starve
+    (deviation D11 of the reference).  With `group` (a parallel/launch.py
+    RankGroup, the sharded steps) the z-buffer is all_reduce(MIN)-merged across
+    its ranks before the readback, so each rank's winners are the front-most
+    voxels of the whole map."""
     vvs = cfg.virtual_voxel_size
     pi, valid = _block_voxel_grid(bpos, bres)
     pf = X.virtual_voxel_pos_to_world(vvs, pi)
@@ -856,6 +859,8 @@ def starve_mask(cfg: MapConfig, cam: C.Camera, bpos, bres, group=None):
     row, col, ok = C.project_point(cam, pcam)
     depth = C.get_depth(cam, pcam)
     ok = ok & valid & (depth >= cam.min_depth)
+    if skip is not None:
+        ok &= ~skip[:, None]
 
     HW = cam.rows * cam.cols
     pix = torch.where(ok, row.to(torch.int64) * cam.cols + col, HW)
@@ -882,10 +887,13 @@ def apply_starve(pool: VoxelPool, bptr, bres, starved):
 
 
 def starve_voxels(cfg: MapConfig, pool: VoxelPool, cam: C.Camera, bpos,
-                  bptr, bres, group=None):
+                  bptr, bres, group=None, skip=None):
     """starveVoxelsKernel: the front-most voxel per pixel (of the whole
-    sharded map with `group`, starve_mask) loses one unit of weight."""
-    apply_starve(pool, bptr, bres, starve_mask(cfg, cam, bpos, bres, group))
+    sharded map with `group`, starve_mask) loses one unit of weight; the
+    entries `skip` marks (the ones coarsening freed) neither take part
+    nor lose weight."""
+    apply_starve(pool, bptr, bres,
+                 starve_mask(cfg, cam, bpos, bres, group, skip))
 
 
 def _clear_blocks(pool: VoxelPool, bptr, bres):
@@ -955,17 +963,32 @@ def coarsen_decide(cfg: MapConfig, pool: VoxelPool, bptr, bres):
 def coarsen_by_variance(cfg: MapConfig, table: H.HashTable, pool: VoxelPool,
                         slots, bpos, decide):
     """checkVarSDFKernel + reallocBlocks (voxel_data_structures.cu:
-    1856-2069), in place: serve at most cfg.max_coarsen_per_frame decided
-    res-0 window entries (window order; the rest stay fine and decide
-    again next frame), free them and snapshot their rows, clear the rows,
-    split high blocks when the low heap is short (allocateMemoryLow), insert
-    the keys at res 1 and, with cfg.coarsen_downsample, merge the fine
-    observations into the coarse blocks (_downsample_into_coarse).
+    1856-2069), in place: coarsen_by_variance_ref's semantics.  CPU
+    tensors take the twin coarsen_by_variance_ref; CUDA tensors kernels
+    K10-K12 with the insert through K9 (ops/coarsen_blocks.py), in five
+    launches and two counted host reads.  Returns coarsen_by_variance_ref's
+    (new_slots, new_mask, freed)."""
+    if AB.on_card(decide.device):
+        return CB.coarsen(cfg, table, pool, slots, bpos, decide)
+    return coarsen_by_variance_ref(cfg, table, pool, slots, bpos, decide)
+
+
+def coarsen_by_variance_ref(cfg: MapConfig, table: H.HashTable,
+                            pool: VoxelPool, slots, bpos, decide):
+    """checkVarSDFKernel + reallocBlocks (voxel_data_structures.cu:
+    1856-2069), in place, in torch ops on any device: the plain twin of
+    kernels K10-K12 (ops/coarsen_blocks.py), and what the CPU runs.
+    Serve at most cfg.max_coarsen_per_frame decided res-0 window entries
+    (window order; the rest stay fine and decide again next frame), free
+    them and snapshot their rows, clear the rows, split high blocks when
+    the low heap is short (allocateMemoryLow), insert the keys at res 1
+    and, with cfg.coarsen_downsample, merge the fine observations into the
+    coarse blocks (_downsample_into_coarse).
 
     Returns (new_slots i64[u], new_mask bool[u], freed bool[A]): the table
     slots of the coarse blocks, which of them were inserted, and the window
-    entries freed (callers drop them from later passes over this frame's
-    window: their slots are free and their rows cleared)."""
+    entries freed (later passes over this frame's window skip them: their
+    slots are free and their rows cleared, or already a coarse block's)."""
     sel = H.compact_indices(decide, int(cfg.max_coarsen_per_frame))
     ptrs, fres = H.free_slots(table, slots[sel])   # window slots: occupied
     rows = ptrs.to(torch.int64) // LANES             # res-0 rows

@@ -141,8 +141,8 @@ def sharded_integrate_rgbd(cfg: MapConfig, group):
         count = int(window[0].numel())
         aux = I.fused_integrate_depth(lcfg, pool, cam, pc_depth, rgb,
                                       *window[1:])
-        coarse, window, gc_decision, _ = pipeline._coarsen(
-            lcfg, state, window, aux["coarsen_decide"], aux["gc_decision"])
+        coarse, freed = pipeline._coarsen(lcfg, state, window,
+                                          aux["coarsen_decide"])
         if coarse is not None:
             I.reintegrate_blocks(lcfg, table, pool, cam, pc_depth, rgb,
                                  *coarse)
@@ -150,11 +150,13 @@ def sharded_integrate_rgbd(cfg: MapConfig, group):
         nf = cfg.n_frames_invalidate_voxels
         if nf > 0:
             slots, bpos, bptr, bres = window
+            gc_decision = aux["gc_decision"]
             if frame > 0 and frame % nf == 0:
                 I.starve_voxels(lcfg, pool, cam, bpos, bptr, bres,
-                                group=group)
+                                group=group, skip=freed)
                 gc_decision = I.gc_decide(lcfg, cam, pool, bptr, bres)
-            I.garbage_collect_sweep(lcfg, table, pool, slots, gc_decision)
+            I.garbage_collect_sweep(lcfg, table, pool, slots,
+                                    pipeline._kept(gc_decision, freed))
 
         state.frame += 1
         return state, _stats(group, state, count, frame)

@@ -28,7 +28,12 @@ tests/test_torch_tracing.py` on the card) hold host_syncs, frame by
 frame, equal to the profiler's count of the runtime's synchronizations
 (its events named *Synchronize*) inside the `compute` range, with
 allocation on its kernels K7-K9 (one counted host read a round, their
-launches counted every frame).
+launches counted every frame); and coarsen_syncs equal to the count
+inside the coarsening range (rgbd.coarsen, points.coarsen), on the
+multi-res RGB-D path and on the reach path, a drive-like map whose
+fresh blocks coarsen through kernels K10-K12: there a scan that
+coarsens passes 3 sync sites (the decision, K10's and K9's reads), any
+other multi-res scan 1.
 """
 import dataclasses
 
@@ -49,7 +54,7 @@ from mrhash_tpu_torch.utils.profiler import COUNTS
 OLD_KEYS = {"occupied_blocks", "occupied_total", "high_free", "low_free",
             "frame", "unserved_blocks", "res0_blocks"}
 NEW_KEYS = {"alloc_keys", "alloc_new", "coarsened", "gc_freed",
-            "window_cut", "coarsen_carried", "host_syncs"}
+            "window_cut", "coarsen_carried", "coarsen_syncs", "host_syncs"}
 # span: its parent
 SPANS = {
     "rgbd": {"compute": None, "compute.upload": "compute",
@@ -241,3 +246,35 @@ def test_host_syncs_match_the_profiler_on_card(path, cuda, tmp_path,
     alloc = {k: COUNTS[k] - alloc0[k] for k in ALLOC}
     assert alloc["alloc_walk"] == alloc["alloc_compact"] == 5, alloc
     assert alloc["alloc_insert"] >= 5, alloc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["rgbd", "reach"])
+def test_coarsen_syncs_match_the_profiler_on_card(path, cuda, tmp_path,
+                                                  monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    gw, feed = _wrapper(path, cuda)
+    feed(0)                 # builds the kernels' library
+    torch.cuda.synchronize()
+    name = "rgbd.coarsen" if path == "rgbd" else "points.coarsen"
+    k10 = COUNTS["coarsen_select"]
+    counted, served = [], []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(1, 6):
+            feed(i)
+            counted.append(gw.last_stats["coarsen_syncs"])
+            served.append(gw.last_stats["coarsened"])
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == name)
+    syncs = [e.time_range.start for e in events if "Synchronize" in e.name]
+    seen = [sum(a <= t <= b for t in syncs) for a, b in spans]
+    gw.close()
+    assert len(spans) == 5
+    assert seen == counted, (seen, served)
+    assert any(served), served
+    assert COUNTS["coarsen_select"] - k10 == sum(n > 0 for n in served)
+    if path == "reach":
+        assert counted == [3 if n else 1 for n in served], (counted, served)
