@@ -597,6 +597,7 @@ def kernels_ab(roots):
 
     # K3 on the scan-21 window: res 0 over the single-res window, res 1
     # over the res-1 entries of the multi-res window, and that whole window
+    from mrhash_tpu_torch.ops import alloc_blocks as AB
     from mrhash_tpu_torch.ops import integrate as I
     clouds = [S.lidar_cloud(S.lidar_pose(i), rng) for i in range(S.L_FRAMES)]
     for multires in (False, True):
@@ -607,7 +608,7 @@ def kernels_ab(roots):
         cam = C.with_pose(gw.camera, gw.curr_rot,
                           S.lidar_pose(S.L_COMPARE_AT))
         points = torch.from_numpy(clouds[S.L_COMPARE_AT]).to(dev)
-        keys, valid = I.alloc_candidates_points(
+        keys, valid = AB.alloc_candidates_points(
             cfg, cam, points, cfg.dda_steps(cfg.max_integration_distance))
         I.alloc_blocks(cfg, gw.state.table, keys, valid, gw.state.frame)
         _, bpos, bptr, bres = I.compact_active(cfg, gw.state.table)

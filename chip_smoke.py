@@ -411,6 +411,7 @@ def rgbd_window(gw, depths, i):
     camera, depth and window (slots, bpos, bptr, bres)."""
     import torch
 
+    from mrhash_tpu_torch.ops import alloc_blocks as AB
     from mrhash_tpu_torch.ops import camera as C
     from mrhash_tpu_torch.ops import integrate as I
     cfg = gw.cfg
@@ -418,7 +419,7 @@ def rgbd_window(gw, depths, i):
     cam = C.with_pose(gw.camera, rot, trans)
     depth = torch.from_numpy(depths[i % ORBIT]).to("cuda")
     pc_depth = C.get_depth(cam, C.compute_cloud(cam, depth))
-    keys, valid = I.alloc_candidates_depth(
+    keys, valid = AB.alloc_candidates_depth(
         cfg, cam, pc_depth, cfg.dda_steps(cfg.max_integration_distance),
         frame=gw.state.frame)
     I.alloc_blocks(cfg, gw.state.table, keys, valid, gw.state.frame)
@@ -566,30 +567,26 @@ def clone_table(t):
                           for k, v in vars(t).items()})
 
 
-def alloc_round_twins(cfg, tk, tr, keys, valid, rk, rv, scratch):
-    """One allocation round, kernels against twins: K7's candidates (where
+def alloc_round_twins(cfg, tk, tr, keys, valid, rk, rv, scratch, frame):
+    """One allocation, kernels against twins: K7's candidates (where
     valid) and scratch, K8's served keys, K9's table and per-key info,
     all equal.  Returns (ukeys, stats, n served, n pending)."""
     import torch
 
     from mrhash_tpu_torch.ops import alloc_blocks as AB
     from mrhash_tpu_torch.ops import hashtable as H
-    from mrhash_tpu_torch.ops import integrate as I
     dev = keys.device
     U = cfg.max_alloc_per_frame
     assert torch.equal(valid, rv) and torch.equal(keys[valid], rk[rv])
-    ref = I.DedupScratch(torch.full(scratch.cells.shape, -1,
-                                    dtype=torch.int64, device=dev),
-                         scratch.salt)
-    I.dedup_scatter(rk, rv, ref)
-    assert torch.equal(scratch.cells.long(), ref.cells), "K7 scratch"
-    uk, stats = AB.compact(scratch.cells, keys, U)
-    ur = I.dedup_compact(rk, ref.cells, U)
+    ref = AB.dedup_scratch(cfg, frame, dev)
+    AB.dedup_scatter(rk, rv, ref)
+    assert torch.equal(scratch.cells, ref.cells), "K7 scratch"
+    uk, stats = AB.compact(keys, scratch, U)
+    ur, _ = AB.dedup_compact(rk, ref, U)
     n = ur.shape[0]
     assert int(stats[0]) == n and torch.equal(uk[:n], ur), "K8"
-    info = H.insert(tk, uk, 0, stats.clone())
-    iref = H.insert_ref(tr, ur, torch.zeros(n, dtype=torch.int32,
-                                            device=dev))
+    info = AB.insert(tk, uk, 0, stats.clone())
+    iref = H.insert(tr, ur, torch.zeros(n, dtype=torch.int32, device=dev))
     for k in ("slot", "ptr", "res", "was_new", "present"):
         assert torch.equal(info[k][:n], iref[k]), f"K9 {k}"
     for f in ("pos", "ptr", "res", "fp", "heap_high", "heap_low"):
@@ -614,7 +611,6 @@ def compare_alloc_kernels(depths, rgb, clouds):
     from mrhash_tpu_torch.ops import alloc_blocks as AB
     from mrhash_tpu_torch.ops import camera as C
     from mrhash_tpu_torch.ops import hashtable as H
-    from mrhash_tpu_torch.ops import integrate as I
 
     dev = torch.device("cuda")
     out = {}
@@ -632,25 +628,25 @@ def compare_alloc_kernels(depths, rgb, clouds):
     steps = cfg.dda_steps(cfg.max_integration_distance)
     U, S = cfg.max_alloc_per_frame, (cfg.max_alloc_per_frame
                                      * cfg.dedup_scratch_factor)
-    scratch = I.dedup_scratch(cfg, frame, dev)
-    keys, valid = I.alloc_candidates_depth(cfg, cam, pc, steps, frame=frame,
-                                           scratch=scratch)
-    rk, rv = I.alloc_candidates_depth_ref(cfg, cam, pc, steps, frame=frame)
+    scratch = AB.dedup_scratch(cfg, frame, dev)
+    keys, valid = AB.alloc_candidates_depth(cfg, cam, pc, steps, frame=frame,
+                                            scratch=scratch)
+    rk, rv = AB.alloc_candidates_depth_ref(cfg, cam, pc, steps, frame=frame)
     uk, stats, n, pending = alloc_round_twins(cfg, tk, tr, keys, valid, rk,
-                                              rv, scratch)
+                                              rv, scratch, frame)
     M, live = keys.shape[0], int(valid.sum())
     R = M // steps
     log(f"compare K7/K8/K9: orbit frame {ORBIT}: {R} rays x {steps} steps, "
         f"{live} live candidates, {n} keys served, {pending} pending; "
         f"kernels equal their twins")
-    cells = I.DedupScratch(AB.new_scratch(S, dev), scratch.salt)
+    cells = AB.dedup_scratch(cfg, frame, dev)
 
     def twin7():
-        k, v = I.alloc_candidates_depth_ref(cfg, cam, pc, steps, frame=frame)
-        I.dedup_scatter(k, v, I.DedupScratch(torch.full(
-            (S,), -1, dtype=torch.int64, device=dev), scratch.salt))
+        k, v = AB.alloc_candidates_depth_ref(cfg, cam, pc, steps,
+                                             frame=frame)
+        AB.dedup_scatter(k, v, AB.dedup_scratch(cfg, frame, dev))
 
-    t = time_kernel_and_twin(lambda: I.alloc_candidates_depth(
+    t = time_kernel_and_twin(lambda: AB.alloc_candidates_depth(
         cfg, cam, pc, steps, frame=frame, scratch=cells), twin7)
     # the frame read (the tile path reads every pixel), key (12 B) and
     # liveness (1 B) written per candidate, each scratch cell touched; ~80
@@ -660,9 +656,8 @@ def compare_alloc_kernels(depths, rgb, clouds):
         t, 0, ROWS * COLS * 4 + M * 13 + S * 4,
         R * (80 + 25 * steps) + ROWS * COLS * 2),
         rays=R, candidates=M, live=live, tile=cfg.alloc_tile)
-    cells64 = scratch.cells.long()
-    t = time_kernel_and_twin(lambda: AB.compact(scratch.cells, keys, U),
-                             lambda: I.dedup_compact(rk, cells64, U))
+    t = time_kernel_and_twin(lambda: AB.compact(keys, scratch, U),
+                             lambda: AB.dedup_compact(rk, scratch, U))
     # the scratch read, each served key gathered and written
     out["alloc_compact"] = dict(kernel_record(t, 0, S * 4 + n * 24, S),
                                 cells=S, served=n)
@@ -670,7 +665,7 @@ def compare_alloc_kernels(depths, rgb, clouds):
     stats_g, ur = stats.clone(), uk[:n].clone()
     zero = torch.zeros(n, dtype=torch.int32, device=dev)
     t = time_kernel_and_twin(lambda: AB.insert_launch(tg, uk, 0, stats_g),
-                             lambda: H.insert_ref(tt, ur, zero))
+                             lambda: H.insert(tt, ur, zero))
     # per key: the key, 17 fingerprints and a key compare read, 18 B of
     # info written; ~60 integer operations (two hashes, the probe)
     out["alloc_insert"] = dict(kernel_record(
@@ -690,24 +685,23 @@ def compare_alloc_kernels(depths, rgb, clouds):
     pts = torch.from_numpy(clouds[L_COMPARE_AT]).to(dev)
     steps = cfg.dda_steps(cfg.max_integration_distance)
     S = cfg.max_alloc_per_frame * cfg.dedup_scratch_factor
-    scratch = I.dedup_scratch(cfg, frame, dev)
-    keys, valid = I.alloc_candidates_points(cfg, cam, pts, steps, None,
-                                            scratch)
-    rk, rv = I.alloc_candidates_points_ref(cfg, cam, pts, steps)
+    scratch = AB.dedup_scratch(cfg, frame, dev)
+    keys, valid = AB.alloc_candidates_points(cfg, cam, pts, steps, None,
+                                             scratch)
+    rk, rv = AB.alloc_candidates_points_ref(cfg, cam, pts, steps)
     _, _, n, pending = alloc_round_twins(cfg, tk, tr, keys, valid, rk, rv,
-                                         scratch)
+                                         scratch, frame)
     M, N = keys.shape[0], pts.shape[0]
     log(f"compare K7/K8/K9: LiDAR scan {L_COMPARE_AT}: {N} points x {steps} "
         f"steps, {int(valid.sum())} live candidates, {n} keys served, "
         f"{pending} pending; kernels equal their twins")
-    cells = I.DedupScratch(AB.new_scratch(S, dev), scratch.salt)
+    cells = AB.dedup_scratch(cfg, frame, dev)
 
     def twin7p():
-        k, v = I.alloc_candidates_points_ref(cfg, cam, pts, steps)
-        I.dedup_scatter(k, v, I.DedupScratch(torch.full(
-            (S,), -1, dtype=torch.int64, device=dev), scratch.salt))
+        k, v = AB.alloc_candidates_points_ref(cfg, cam, pts, steps)
+        AB.dedup_scatter(k, v, AB.dedup_scratch(cfg, frame, dev))
 
-    t = time_kernel_and_twin(lambda: I.alloc_candidates_points(
+    t = time_kernel_and_twin(lambda: AB.alloc_candidates_points(
         cfg, cam, pts, steps, None, cells), twin7p)
     out["alloc_walk_points"] = dict(kernel_record(
         t, 0, N * 12 + M * 13 + S * 4, N * (60 + 25 * steps)),
@@ -736,7 +730,7 @@ def restore_state(dst, src):
 
 def compare_coarsen_kernels(clouds):
     """K10, K11 and K12 (coarsening, csrc/coarsen_blocks.cu) against their
-    twin (integrate.coarsen_by_variance_ref) on a step like the drive's:
+    twin (coarsen_blocks.coarsen_by_variance_ref) on a step like the drive's:
     the LiDAR slice fused at one resolution for L_COMPARE_AT scans, its
     window of every block, the decisions under MR_THRESHOLD, C_SERVED
     served a step (the drive coarsens ~25-30 fresh blocks a scan) after
@@ -765,14 +759,13 @@ def compare_coarsen_kernels(clouds):
     torch.cuda.empty_cache()
     slots, bpos, bptr, bres = I.compact_window(cfg, base.table)[0]
     decide = I.coarsen_decide(cfg, base.pool, bptr, bres)
-    first = I.coarsen_by_variance(cfg, base.table, base.pool, slots, bpos,
-                                  decide)[2]
+    first = CB.coarsen(cfg, base.table, base.pool, slots, bpos, decide)[2]
     decide = decide & ~first
     n_dec, a = int(decide.sum()), slots.shape[0]
     tk, tr = clone_state(base), clone_state(base)
-    got = I.coarsen_by_variance(cfg, tk.table, tk.pool, slots, bpos, decide)
-    ref = I.coarsen_by_variance_ref(cfg, tr.table, tr.pool, slots, bpos,
-                                    decide)
+    got = CB.coarsen(cfg, tk.table, tk.pool, slots, bpos, decide)
+    ref = CB.coarsen_by_variance_ref(cfg, tr.table, tr.pool, slots, bpos,
+                                     decide)
     for g, r in zip(got, ref):
         assert torch.equal(g, r), "K10-K12 served entries"
     for f in ("pos", "ptr", "res", "fp", "heap_high", "heap_low"):
@@ -810,15 +803,15 @@ def compare_coarsen_kernels(clouds):
         m, work.table.high_count, work.table.low_count, _ = \
             stats.tolist()
         stage, t11 = timed(lambda: CB.merge(cfg, work.pool, fptr, fres, m))
-        info, _ = AB.insert(work.table, keys[:m], 1)
+        info = AB.insert(work.table, keys[:m], 1)
         _, t12 = timed(lambda: CB.scatter(work.pool, stage, info["was_new"],
                                           info["ptr"]))
         torch.cuda.synchronize()
         for k, (e0, e1) in zip(("select", "merge", "scatter"),
                                (t10, t11, t12)):
             ms[k].append(e0.elapsed_time(e1))
-        for k, fn in (("step", I.coarsen_by_variance),
-                      ("twin", I.coarsen_by_variance_ref)):
+        for k, fn in (("step", CB.coarsen),
+                      ("twin", CB.coarsen_by_variance_ref)):
             restore_state(work, base)
             torch.cuda.synchronize()
             _, (e0, e1) = timed(lambda: fn(cfg, work.table, work.pool,
@@ -1172,6 +1165,7 @@ def compare_lidar_kernel(clouds, multires=False):
     from mrhash_tpu_torch.utils.profiler import COUNTS
     import torch
 
+    from mrhash_tpu_torch.ops import alloc_blocks as AB
     from mrhash_tpu_torch.ops import camera as C
     from mrhash_tpu_torch.ops import cuda_lib
     from mrhash_tpu_torch.ops import fused_integrate_points as FIP
@@ -1184,7 +1178,7 @@ def compare_lidar_kernel(clouds, multires=False):
     cfg = gw.cfg
     cam = C.with_pose(gw.camera, gw.curr_rot, lidar_pose(L_COMPARE_AT))
     points = torch.from_numpy(clouds[L_COMPARE_AT]).to(dev)
-    keys, valid = I.alloc_candidates_points(
+    keys, valid = AB.alloc_candidates_points(
         cfg, cam, points, cfg.dda_steps(cfg.max_integration_distance))
     I.alloc_blocks(cfg, gw.state.table, keys, valid, gw.state.frame)
     _, bpos, bptr, bres = I.compact_active(cfg, gw.state.table)
@@ -1343,9 +1337,9 @@ def compare_c14_keys(depths, clouds):
 
     from mrhash_tpu_torch import native
     from mrhash_tpu_torch.core.state import MapConfig
+    from mrhash_tpu_torch.ops import alloc_blocks as AB
     from mrhash_tpu_torch.ops import camera as C
     from mrhash_tpu_torch.ops import coords as X
-    from mrhash_tpu_torch.ops import integrate as I
 
     def key_set(k, m):
         k = k.cpu().numpy()[m.cpu().numpy()]
@@ -1364,7 +1358,7 @@ def compare_c14_keys(depths, clouds):
                                             30.0, device=dev), rot, trans)
             depth = torch.from_numpy(depths[i % ORBIT]).to(dev)
             pc_depth = C.get_depth(cam, C.compute_cloud(cam, depth))
-            sets.append(key_set(*I.alloc_candidates_depth(
+            sets.append(key_set(*AB.alloc_candidates_depth(
                 cfg, cam, pc_depth, steps, frame=i)))
         out[f"rgbd_{i}"] = len(sets[0] ^ sets[1])
         log(f"compare C14: RGB-D frame {i}: {len(sets[0])} candidate keys "
@@ -1382,15 +1376,15 @@ def compare_c14_keys(depths, clouds):
                                         0.2, 100.0, C.SPHERICAL, device=dev),
                           np.eye(3, dtype=np.float32), lidar_pose(0))
         points = torch.from_numpy(pts).to(dev)
-        n_dir, rng = I._unit(torch.from_numpy(nrm).to(dev))[0], \
-            I._unit(points)[1]
+        n_dir, rng = X.unit(torch.from_numpy(nrm).to(dev))[0], \
+            X.unit(points)[1]
         t = X.get_truncation(rng, cfg.sdf_truncation, 0.0)
         d_min = torch.clamp(rng - t, max=cfg.max_integration_distance)
         d_max = torch.clamp(rng + t, max=cfg.max_integration_distance)
         ok = (rng >= 1e-6) & (d_min < d_max)
         pw_min = C.cam_to_world(cam, points + n_dir * (d_min - rng)[:, None])
         pw_max = C.cam_to_world(cam, points + n_dir * (d_max - rng)[:, None])
-        vox, visit = I._dda_visit(
+        vox, visit = AB.dda_visit(
             cfg, pw_min, pw_max, ok,
             cfg.dda_voxel_steps(cfg.max_integration_distance),
             block_level=False)

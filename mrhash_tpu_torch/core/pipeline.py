@@ -17,7 +17,9 @@ import torch
 
 from mrhash_tpu_torch import params as P
 from mrhash_tpu_torch.core.state import MapConfig, MapState, coarsen_pending
+from mrhash_tpu_torch.ops import alloc_blocks as AB
 from mrhash_tpu_torch.ops import camera as C
+from mrhash_tpu_torch.ops import coarsen_blocks as CB
 from mrhash_tpu_torch.ops import integrate as I
 from mrhash_tpu_torch.utils.profiler import (COUNTS, SYNCS, host_bool,
                                              host_list, since, stage)
@@ -26,7 +28,7 @@ from mrhash_tpu_torch.utils.profiler import (COUNTS, SYNCS, host_bool,
 def _coarsen(cfg: MapConfig, state: MapState, window, decide):
     """The multi-resolution step after the integrate: when the frame is
     not the first and some res-0 entry decided to coarsen (`decide`, from
-    K1's or K3's flags or from the pool), coarsen_by_variance.  Returns
+    K1's or K3's flags or from the pool), coarsen_blocks.coarsen.  Returns
     (new_slots, new_mask) of the coarse blocks, or None, and the window
     entries it freed (bool[A], or None where it did not run).  The window
     is not recompacted (the reference's deviation D18) and keeps the freed
@@ -38,7 +40,7 @@ def _coarsen(cfg: MapConfig, state: MapState, window, decide):
     if cfg.sdf_var_threshold <= 0.0 or state.frame == 0 or not host_bool(
             decide.any()):
         return None, None
-    new_slots, new_mask, freed = I.coarsen_by_variance(
+    new_slots, new_mask, freed = CB.coarsen(
         cfg, state.table, state.pool, *window[:2], decide)
     return (new_slots, new_mask), freed
 
@@ -66,11 +68,11 @@ def integrate_rgbd(cfg: MapConfig, state: MapState, cam: C.Camera,
     with stage("rgbd.alloc"):
         with stage("rgbd.alloc.cloud"):
             pc_depth = C.get_depth(cam, C.compute_cloud(cam, depth_img))
-        # the walk fills round 0's dedup scratch (fused in one kernel on
+        # the walk fills the frame's dedup scratch (fused in one kernel on
         # a card)
         with stage("rgbd.alloc.candidates"):
-            scratch = I.dedup_scratch(cfg, state.frame, pc_depth.device)
-            keys, valid = I.alloc_candidates_depth(
+            scratch = AB.dedup_scratch(cfg, state.frame, pc_depth.device)
+            keys, valid = AB.alloc_candidates_depth(
                 cfg, cam, pc_depth, num_steps, frame=state.frame,
                 scratch=scratch)
         alloc = I.alloc_blocks(cfg, table, keys, valid, state.frame, scratch)
@@ -154,8 +156,8 @@ def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
     # each stage is a torch.profiler range while a profiler runs (points.*;
     # chip_profile.py reads their host and device times)
     with stage("points.alloc_candidates"):
-        scratch = I.dedup_scratch(cfg, state.frame, points.device)
-        keys, valid = I.alloc_candidates_points(
+        scratch = AB.dedup_scratch(cfg, state.frame, points.device)
+        keys, valid = AB.alloc_candidates_points(
             cfg, cam, points, cfg.dda_steps(mdist), normals, scratch)
     with stage("points.alloc_blocks"):
         alloc = I.alloc_blocks(cfg, table, keys, valid, state.frame, scratch)

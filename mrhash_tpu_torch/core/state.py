@@ -18,7 +18,7 @@ import torch
 
 from mrhash_tpu_torch import params as P
 from mrhash_tpu_torch.ops import hashtable as H
-from mrhash_tpu_torch.utils.profiler import host_list
+from mrhash_tpu_torch.utils.profiler import host_list, put
 
 LANES = P.TOTAL_SDF_BLOCK_SIZE
 
@@ -63,6 +63,15 @@ def put_windows(field, vidx, valid, vals):
     boolean indexing, so no device sync (CUDA graphs can capture it)."""
     last = vals[:, P.TOTAL_LOW_BLOCK_SIZE - 1:P.TOTAL_LOW_BLOCK_SIZE]
     field.view(-1).index_put_((vidx,), torch.where(valid, vals, last))
+
+
+def clear_blocks(pool: VoxelPool, bptr, bres):
+    """deleteVoxel over whole blocks (voxel_data_structures.cu:1838-1842):
+    zero the blocks' windows, a res-0 block's row and a res-1 block's 64
+    lanes (their siblings' windows in the same row stay)."""
+    vidx, _ = window_voxels(bptr, bres)
+    for f in VoxelPool.FIELDS:
+        put(getattr(pool, f).view(-1), vidx, 0)
 
 
 def check_windows(ptr, res, n_rows: int, other_bad=None) -> int:
@@ -156,7 +165,6 @@ class MapConfig:
     max_active_blocks: int = 1 << 16         # cap of the in-frustum window
     max_alloc_per_frame: int = 1 << 14       # unique new blocks per frame
     dedup_scratch_factor: int = 16           # scratch cells per alloc slot
-    alloc_rounds: int = 1                    # salted dedup+insert passes
     alloc_pixel_stride: int = 2              # stagger candidates over s^2 frames
     alloc_tile: int = 0                      # >1: per-tile min/max band alloc
     dda_extra_steps: int = 3

@@ -37,10 +37,11 @@ import torch
 
 from mrhash_tpu_torch import params as P
 from mrhash_tpu_torch.core.state import (MapConfig, MapState, VoxelPool,
-                                         put_windows, window_voxels)
+                                         clear_blocks, put_windows,
+                                         window_voxels)
+from mrhash_tpu_torch.ops import alloc_blocks as AB
 from mrhash_tpu_torch.ops import coords as X
 from mrhash_tpu_torch.ops import hashtable as H
-from mrhash_tpu_torch.ops import integrate as I
 from mrhash_tpu_torch.utils.profiler import stage
 
 # the chunk grid's names of the pool fields (VoxelPool.FIELDS order)
@@ -110,7 +111,7 @@ def insert_blocks(cfg: MapConfig, table: H.HashTable, pool: VoxelPool, pos,
     and `new` marks the blocks this call inserted."""
     if table.low_count < int((res == 1).sum()):
         H.split_high_blocks(table, int(cfg.low_split_chunk))
-    info = H.insert(table, pos, res)
+    info = AB.insert(table, pos, res)
     new = info["was_new"]
     vidx, valid = window_voxels(info["ptr"][new], res[new])
     for f, vals in zip(VoxelPool.FIELDS, (sdf, ssq, w, rgb)):
@@ -368,7 +369,7 @@ class Streamer:
                 ev[0].record()
             with stage("stream.gather"):
                 fields = gather_blocks(state.pool, ptr[sl], res[sl])
-                I._clear_blocks(state.pool, ptr[sl], res[sl])
+                clear_blocks(state.pool, ptr[sl], res[sl])
             if cuda:
                 ev[1].record()
             else:

@@ -30,10 +30,10 @@ C) take less; see the source.
 
 `blend_forward` and `blend_backward` take their plain PyTorch twins
 (`blend_forward_ref`, `blend_backward_ref`, K-step loops over [T,256]
-tensors in the reference's order) for CPU tensors only; for CUDA tensors
-they launch the kernel or raise.  Each launch counts in
-utils/profiler.COUNTS under the kernel's name ("blend_forward",
-"blend_backward").
+tensors in the reference's order) for CPU tensors, the kernels for CUDA
+tensors, and raise for any other device (cuda_lib.on_card).  Each
+launch counts in utils/profiler.COUNTS under the kernel's name
+("blend_forward", "blend_backward").
 """
 from __future__ import annotations
 
@@ -194,15 +194,14 @@ def blend_forward(attr, valid, grid_x: int):
     image row.  Returns (Tfin f32[T,256], Cfin f32[T,256,3], mask
     i32[T,K,8])."""
     dev = attr.device
+    card = cuda_lib.on_card(dev)
     n_tiles, K = valid.shape
     cuda_lib.expect(attr, "attr", torch.float32, (n_tiles, K, N_ATTR), dev)
     cuda_lib.expect(valid, "valid", torch.bool, (n_tiles, K), dev)
     if grid_x < 1:
         raise ValueError(f"grid_x: {grid_x}, expected >= 1")
-    if dev.type == "cpu":
+    if not card:
         return blend_forward_ref(attr, valid, grid_x)
-    if dev.type != "cuda":
-        raise ValueError(f"blend_forward: no kernel for {dev}")
     return _launch_forward(attr, valid, grid_x)
 
 
@@ -230,6 +229,7 @@ def blend_backward(attr, valid, grid_x: int, Tfin, mask, gT, gC):
     attr, f32[T,K,9].  The kernel walks each tile from its last valid slot
     (K4 blends no invalid one); the twin needs only the mask."""
     dev = attr.device
+    card = cuda_lib.on_card(dev)
     n_tiles, K = mask.shape[:2]
     e = cuda_lib.expect
     e(attr, "attr", torch.float32, (n_tiles, K, N_ATTR), dev)
@@ -243,10 +243,8 @@ def blend_backward(attr, valid, grid_x: int, Tfin, mask, gT, gC):
     if mask.data_ptr() % 16:
         raise ValueError("mask: not 16-byte aligned (the kernel reads 16 B "
                          "per access)")
-    if dev.type == "cpu":
+    if not card:
         return blend_backward_ref(attr, grid_x, Tfin, mask, gT, gC)
-    if dev.type != "cuda":
-        raise ValueError(f"blend_backward: no kernel for {dev}")
     return _launch_backward(attr, valid, grid_x, Tfin, mask, gT, gC)
 
 

@@ -141,3 +141,16 @@ def combine_voxel(sdf0, w0, rgb0, sdf1, w1, rgb1,
     sdf = (sdf0 * w0f + sdf1 * w1f) / (w0f + w1f)
     w = torch.clamp(w0 + w1, max=integration_weight_max)
     return sdf, w, rgb
+
+
+def norm3(v):
+    """Euclidean norm over the last axis, summed x, y, z in order (keeps
+    the axis)."""
+    x, y, z = v[..., 0:1], v[..., 1:2], v[..., 2:3]
+    return torch.sqrt(x * x + y * y + z * z)
+
+
+def unit(v):
+    """(v / |v| with a zero vector kept zero, |v| f32[...])."""
+    n = norm3(v)
+    return v / torch.where(n == 0, 1.0, n), n[..., 0]

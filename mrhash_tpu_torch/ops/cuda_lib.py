@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (mrhash_tpu_torch/csrc/*.cu).
+"""Build and load the port's CUDA kernels (mrhash_tpu_torch/csrc/*.cu),
+and the device policy that every kernel entry asks (on_card).
 
 The kernels are compiled with nvcc, one process per source started
 together, and linked into one shared library with a plain C interface,
@@ -166,6 +167,17 @@ def check(rc: int, what: str):
     if rc != 0:
         msg = library().mrhash_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def on_card(device) -> bool:
+    """The port's one device policy: True for a CUDA device (the
+    kernels), False for the CPU (their plain PyTorch twins); raises
+    ValueError for any other device.  Every kernel entry asks it before
+    it validates or reads its operands."""
+    dev = torch.device(device)
+    if dev.type in ("cuda", "cpu"):
+        return dev.type == "cuda"
+    raise ValueError(f"no kernel or twin for {dev}")
 
 
 def stream_of(t):

@@ -25,10 +25,11 @@ load of each voxel's pixel (L2 resident) and an in-place window update
 move the fewest bytes.
 
 `fused_integrate_rows` takes the plain PyTorch twin
-`fused_integrate_rows_ref` for CPU tensors only; for CUDA tensors it
-launches the kernel or raises.  utils/profiler.COUNTS counts launches of
-the res-0 kernel under "fused_integrate_rows", those of the res-1 kernel
-under "fused_integrate_rows_res1".
+`fused_integrate_rows_ref` for CPU tensors, the kernel for CUDA tensors,
+and raises for any other device (cuda_lib.on_card).
+utils/profiler.COUNTS counts launches of the res-0 kernel under
+"fused_integrate_rows", those of the res-1 kernel under
+"fused_integrate_rows_res1".
 """
 from __future__ import annotations
 
@@ -160,6 +161,7 @@ def fused_integrate_rows(pool, depth_img, rgb_img, cam_vec, bpos, ptr, res):
     kernel moves 4 voxels per access).  Updates the windows in place and
     returns flags f32[A,4]."""
     dev = depth_img.device
+    card = cuda_lib.on_card(dev)
     H_, W_ = depth_img.shape
     N = pool.sdf.shape[0]
     A = bpos.shape[0]
@@ -176,11 +178,9 @@ def fused_integrate_rows(pool, depth_img, rgb_img, cam_vec, bpos, ptr, res):
         if getattr(pool, f).data_ptr() % 16:
             raise ValueError(f"pool.{f}: not 16-byte aligned")
     n1 = check_windows(ptr, res, N) if A else 0
-    if dev.type == "cpu":
+    if not card:
         return fused_integrate_rows_ref(pool, depth_img, rgb_img, cam_vec,
                                         bpos, ptr, res)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_integrate_rows: no kernel for {dev}")
     flags = torch.empty((A, 4), dtype=torch.float32, device=dev)
     order = torch.argsort(res, stable=True)      # res-0 entries first
     for kind, entries in ((0, order[:A - n1]), (1, order[A - n1:])):

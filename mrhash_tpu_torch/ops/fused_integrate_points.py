@@ -24,11 +24,12 @@ VMEM; on Hopper the 256 KB image stays in L2 and each voxel loads its own
 pixel.
 
 `fused_integrate_points_rows` takes the plain PyTorch twin
-`fused_integrate_points_rows_ref` for CPU tensors only; for CUDA tensors it
-launches the kernel or raises.  utils/profiler.COUNTS counts launches
-that served res-0 entries under "fused_integrate_points_rows", launches
-that served res-1 entries under "fused_integrate_points_rows_res1" (a
-launch over a mixed window counts in both).
+`fused_integrate_points_rows_ref` for CPU tensors, the kernel for CUDA
+tensors, and raises for any other device (cuda_lib.on_card).
+utils/profiler.COUNTS counts launches that served res-0 entries under
+"fused_integrate_points_rows", launches that served res-1 entries under
+"fused_integrate_points_rows_res1" (a launch over a mixed window counts
+in both).
 """
 from __future__ import annotations
 
@@ -105,6 +106,7 @@ def fused_integrate_points_rows(pool, img, pix, r_vox, ptr, res, consts):
     f32[A,4].  pix, r_vox and the pool fields must be 8-byte aligned (the
     kernel moves 2 voxels per access)."""
     dev = img.device
+    card = cuda_lib.on_card(dev)
     H_, W_ = img.shape
     N = pool.sdf.shape[0]
     A = ptr.shape[0]
@@ -128,11 +130,9 @@ def fused_integrate_points_rows(pool, img, pix, r_vox, ptr, res, consts):
     n1 = check_windows(ptr, res, N, (
         f"pix: a pixel outside [-1, {H_ * W_})",
         (pix < -1) | (pix >= H_ * W_))) if A else 0
-    if dev.type == "cpu":
+    if not card:
         return fused_integrate_points_rows_ref(pool, img, pix, r_vox, ptr,
                                                res, consts)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_integrate_points_rows: no kernel for {dev}")
     flags = torch.empty((A, N_FLAGS), dtype=torch.float32, device=dev)
     order = torch.argsort(res, stable=True)      # res-0 entries first
     _launch(pool, img, pix, r_vox, ptr, order, A - n1, consts, flags)

@@ -15,7 +15,8 @@ Bound on the card: bytes — 9 B of row/col/mask and up to 8 B of image read,
 and hit L2.
 
 `sample_image` takes the plain PyTorch twin `sample_image_ref` for CPU
-tensors only; for CUDA tensors it launches the kernel or raises.
+tensors, the kernel for CUDA tensors, and raises for any other device
+(cuda_lib.on_card); so does `sample_image5`.
 utils/profiler.COUNTS counts its launches under "sample_image", and
 K6's under "sample_image5".
 
@@ -53,6 +54,7 @@ def sample_image(img, row, col, ok):
     absolute pixel coordinates, inside the image wherever ok; ok
     bool[A,512].  Returns f32[A,2,512]."""
     dev = img.device
+    card = cuda_lib.on_card(dev)
     _, H_, W_ = img.shape
     A = row.shape[0]
     e = cuda_lib.expect
@@ -63,10 +65,8 @@ def sample_image(img, row, col, ok):
     off = (row < 0) | (row >= H_) | (col < 0) | (col >= W_)
     if host_bool((ok & off).any()):
         raise ValueError("row/col: an ok lane lies outside the image")
-    if dev.type == "cpu":
+    if not card:
         return sample_image_ref(img, row, col, ok)
-    if dev.type != "cuda":
-        raise ValueError(f"sample_image: no kernel for {dev}")
     return _launch(img, row, col, ok)
 
 
@@ -113,6 +113,7 @@ def sample_image5(img5, r0, c0, lr, lc):
     lr/lc i32[A,512] patch-local coordinates; A % 8 == 0.  Returns
     f32[A,8,512]."""
     dev = img5.device
+    card = cuda_lib.on_card(dev)
     _, H_, W_ = img5.shape
     A = lr.shape[0]
     e = cuda_lib.expect
@@ -124,10 +125,8 @@ def sample_image5(img5, r0, c0, lr, lc):
     if H_ < PATCH_H or W_ < PATCH_W or A % 8:
         raise ValueError(f"sample_image5: needs H >= {PATCH_H}, W >= "
                          f"{PATCH_W} and A % 8 == 0, got {H_}, {W_}, {A}")
-    if dev.type == "cpu":
+    if not card:
         return sample_image5_ref(img5, r0, c0, lr, lc)
-    if dev.type != "cuda":
-        raise ValueError(f"sample_image5: no kernel for {dev}")
     return _launch5(img5, r0, c0, lr, lc)
 
 

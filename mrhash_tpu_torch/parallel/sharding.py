@@ -9,7 +9,7 @@ device and calls collectives on its RankGroup (PORT_NOTES.md P63-P69):
 - image rows (LiDAR points) split over the ranks for allocation, the first
   rows % n ranks taking one row more (P65);
 - candidate keys route to their owner, avalanche(key) mod n, by one
-  all_gather per allocation round of this rank's deduplicated keys padded
+  all_gather per frame of this rank's deduplicated keys padded
   to max_alloc_per_frame with a valid flag (P64); the owner deduplicates
   the gathered keys again, in rank-major order, and inserts them;
 - each rank holds a full sub-map with 1/n of the capacities (local_config)
@@ -35,7 +35,9 @@ from mrhash_tpu_torch import params as P
 from mrhash_tpu_torch.core import convert, pipeline
 from mrhash_tpu_torch.core import streaming as S
 from mrhash_tpu_torch.core.state import MapConfig, MapState, make_state
+from mrhash_tpu_torch.ops import alloc_blocks as AB
 from mrhash_tpu_torch.ops import camera as C
+from mrhash_tpu_torch.ops import coarsen_blocks as CB
 from mrhash_tpu_torch.ops import hashtable as H
 from mrhash_tpu_torch.ops import integrate as I
 
@@ -80,25 +82,24 @@ def _share(total: int, n: int, rank: int):
 
 
 def _route_keys(lcfg: MapConfig, group, table: H.HashTable, keys, valid,
-                frame: int):
-    """Allocation with key routing: per round, dedup this rank's
-    candidates, all_gather them (padded to max_alloc_per_frame with a valid
-    flag), keep the ones this rank owns, dedup those again in rank-major
-    gathered order with the same salt, and insert them, in place."""
+                frame: int, scratch: AB.DedupScratch):
+    """Allocation with key routing: dedup this rank's candidates (the walk
+    filled `scratch`), all_gather them (padded to max_alloc_per_frame with
+    a valid flag), keep the ones this rank owns, dedup those again in
+    rank-major gathered order with the same salt, and insert them, in
+    place.  Both dedups and the insert go through ops/alloc_blocks.py's
+    entries (K7's scatter, K8 and K9 on a card)."""
     u = int(lcfg.max_alloc_per_frame)
-    scratch = u * lcfg.dedup_scratch_factor
-    for rnd in range(lcfg.alloc_rounds):
-        salt = frame * lcfg.alloc_rounds + rnd
-        ukeys = I.dedup_candidates(keys, valid, salt, scratch, u)
-        buf = torch.zeros((u, 4), dtype=torch.int32, device=keys.device)
-        buf[:ukeys.shape[0], :3] = ukeys
-        buf[:ukeys.shape[0], 3] = 1
-        g = group.all_gather(buf).reshape(-1, 4)
-        gk = g[:, :3]
-        mine = (g[:, 3] == 1) & (owner_of(gk, group.size) == group.rank)
-        okeys = I.dedup_candidates(gk, mine, salt, scratch, u)
-        H.insert(table, okeys, torch.zeros(okeys.shape[0], dtype=torch.int32,
-                                           device=keys.device))
+    ukeys, stats = AB.dedup(lcfg, keys, valid, frame, scratch)
+    n = ukeys.shape[0]     # on a card u rows, the first stats[0] real
+    buf = torch.zeros((u, 4), dtype=torch.int32, device=keys.device)
+    buf[:n, :3] = ukeys
+    buf[:n, 3] = torch.arange(n, device=keys.device) < stats[0]
+    g = group.all_gather(buf).reshape(-1, 4)
+    gk = g[:, :3].contiguous()
+    mine = (g[:, 3] == 1) & (owner_of(gk, group.size) == group.rank)
+    okeys, ostats = AB.dedup(lcfg, gk, mine, frame)
+    AB.insert(table, okeys, 0, ostats)
 
 
 def _stats(group, state: MapState, count: int, frame: int):
@@ -133,9 +134,11 @@ def sharded_integrate_rgbd(cfg: MapConfig, group):
         table, pool, frame = state.table, state.pool, state.frame
         pc_depth = C.get_depth(cam, C.compute_cloud(cam, depth))
         lo, hi = _share(cam.rows, n, me)
-        keys, valid = I.alloc_candidates_depth(
-            lcfg, cam, pc_depth[lo:hi], num_steps, row0=lo, frame=frame)
-        _route_keys(lcfg, group, table, keys, valid, frame)
+        scratch = AB.dedup_scratch(lcfg, frame, pc_depth.device)
+        keys, valid = AB.alloc_candidates_depth(
+            lcfg, cam, pc_depth[lo:hi], num_steps, row0=lo, frame=frame,
+            scratch=scratch)
+        _route_keys(lcfg, group, table, keys, valid, frame, scratch)
 
         window = I.compact_active(lcfg, table, cam)
         count = int(window[0].numel())
@@ -188,10 +191,11 @@ def sharded_integrate_points(cfg: MapConfig, group):
              weights=None):
         table, pool, frame = state.table, state.pool, state.frame
         lo, hi = _share(points.shape[0], n, me)
-        keys, valid = I.alloc_candidates_points(
+        scratch = AB.dedup_scratch(lcfg, frame, points.device)
+        keys, valid = AB.alloc_candidates_points(
             lcfg, cam, points[lo:hi], num_steps,
-            None if normals is None else normals[lo:hi])
-        _route_keys(lcfg, group, table, keys, valid, frame)
+            None if normals is None else normals[lo:hi], scratch)
+        _route_keys(lcfg, group, table, keys, valid, frame, scratch)
 
         window = I.compact_active(lcfg, table)
         if cfg.projective_sdf:
@@ -205,8 +209,7 @@ def sharded_integrate_points(cfg: MapConfig, group):
             if decide is None:
                 decide = I.coarsen_decide(lcfg, pool, *window[2:])
             if bool(decide.any()):
-                I.coarsen_by_variance(lcfg, table, pool, window[0],
-                                      window[1], decide)
+                CB.coarsen(lcfg, table, pool, window[0], window[1], decide)
                 window = I.compact_active(lcfg, table)
         count = int(window[0].numel())
 

@@ -1,11 +1,11 @@
 """Allocation on the card: kernels K7-K9 (ops/alloc_blocks.py,
 csrc/alloc_blocks.cu) against their plain PyTorch twins.
 
-The CPU cases hold the dispatch: on CPU tensors alloc_candidates_*,
-alloc_blocks and H.insert take the twins (no kernel launch is counted)
-and give the same keys, table and (submitted, inserted) as the plain
-round of the twins (dedup_candidates, then insert_ref), with one
-allocation round and with two.
+The CPU cases hold the choice: on CPU tensors AB.alloc_candidates_*,
+AB.dedup and AB.insert (through I.alloc_blocks) take the twins (no
+kernel launch is counted) and give the same keys, i32 scratch, table and
+(submitted, inserted) as the plain allocation of the twins
+(dedup_scatter and dedup_compact, then H.insert).
 
 The `gpu` cases (`python -m pytest --noconftest -m gpu
 tests/test_torch_alloc_blocks.py` on a machine with a card) run the
@@ -19,9 +19,10 @@ the benchmark cells' sizes: 1200x680 depth rays at stride 2 with 7 steps
 frames that find most keys), and 64x1024 LiDAR points with 4 steps along
 the camera rays and along the normals (the second scan of a pose finds
 every key); then a small table with full probe windows, a dry heap,
-res-1 keys, a fingerprint collision and padded batches; alloc_rounds = 2
-and the 4 x 4 tile path (GeoWrapper's) through alloc_blocks, with tiles
-past the image's edge; and the launches and the one host read a round.
+res-1 keys, a fingerprint collision and padded batches; the scatter
+alone (a walk without the scratch) and the 4 x 4 tile path
+(GeoWrapper's) through alloc_blocks, with tiles past the image's edge;
+and the launches and the one host read an allocation.
 """
 import dataclasses
 import math
@@ -105,29 +106,23 @@ def _scan(i, rows, cols, device, normals=False):
     return cam, pts.to(device), nrm
 
 
-def _twin_scratch(cfg, frame, device, rnd, keys, valid):
-    s = I.DedupScratch(torch.full(
-        (cfg.max_alloc_per_frame * cfg.dedup_scratch_factor,), -1,
-        dtype=torch.int64, device=device),
-        frame * cfg.alloc_rounds + rnd)
-    I.dedup_scatter(keys, valid, s)
+def _twin_scratch(cfg, frame, device, keys, valid):
+    s = AB.dedup_scratch(cfg, frame, device)
+    AB.dedup_scatter(keys, valid, s)
     return s
 
 
 def _alloc_twin(cfg, table, keys, valid, frame):
-    """The plain allocation rounds: dedup_candidates, then insert_ref.
-    Returns (submitted, inserted)."""
+    """The plain allocation: dedup_scatter and dedup_compact, then
+    H.insert, the twins on any device.  Returns (submitted, inserted)."""
     free0 = table.high_count + table.low_count
-    submitted = 0
-    for i in range(cfg.alloc_rounds):
-        u = I.dedup_candidates(keys, valid, frame * cfg.alloc_rounds + i,
-                               cfg.max_alloc_per_frame
-                               * cfg.dedup_scratch_factor,
-                               cfg.max_alloc_per_frame)
-        submitted += u.shape[0]
-        H.insert_ref(table, u, torch.zeros(u.shape[0], dtype=torch.int32,
-                                           device=u.device))
-    return submitted, free0 - table.high_count - table.low_count
+    u, stats = AB.dedup_compact(keys, _twin_scratch(cfg, frame, keys.device,
+                                                    keys, valid),
+                                cfg.max_alloc_per_frame)
+    assert int(stats[0]) == u.shape[0]
+    H.insert(table, u, torch.zeros(u.shape[0], dtype=torch.int32,
+                                   device=u.device))
+    return u.shape[0], free0 - table.high_count - table.low_count
 
 
 def _clone(table):
@@ -147,55 +142,52 @@ def _same_info(info, ref, n):
 
 
 # ---------------------------------------------------------------------------
-# CPU: the dispatch takes the twins
+# CPU: the entries take the twins
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("path", ["depth", "points"])
 def test_alloc_blocks_on_cpu_takes_the_twins(path):
-    for rounds in (1, 2):
+    if path == "depth":
+        cfg = dataclasses.replace(ORBIT, num_blocks=1 << 12,
+                                  num_buckets=1 << 9,
+                                  max_alloc_per_frame=1 << 9)
+    else:
+        cfg = dataclasses.replace(LOOP, num_blocks=1 << 11,
+                                  num_buckets=1 << 9,
+                                  max_alloc_per_frame=1 << 8)
+    table = H.make_table(cfg.num_blocks, cfg.num_buckets)
+    twin = _clone(table)
+    before = {k: COUNTS[k] for k in KERNELS}
+    for f in range(3):
         if path == "depth":
-            cfg = dataclasses.replace(ORBIT, num_blocks=1 << 12,
-                                      num_buckets=1 << 9,
-                                      max_alloc_per_frame=1 << 9,
-                                      alloc_rounds=rounds)
+            cam, pc = _depth_frame(f, 68, 120, "cpu")
+            steps = cfg.dda_steps(30.0)
+            scratch = AB.dedup_scratch(cfg, f, "cpu")
+            keys, valid = AB.alloc_candidates_depth(cfg, cam, pc, steps,
+                                                    frame=f, scratch=scratch)
+            rk, rv = AB.alloc_candidates_depth_ref(cfg, cam, pc, steps,
+                                                   frame=f)
         else:
-            cfg = dataclasses.replace(LOOP, num_blocks=1 << 11,
-                                      num_buckets=1 << 9,
-                                      max_alloc_per_frame=1 << 8,
-                                      alloc_rounds=rounds)
-        table = H.make_table(cfg.num_blocks, cfg.num_buckets)
-        twin = _clone(table)
-        before = {k: COUNTS[k] for k in KERNELS}
-        for f in range(3):
-            if path == "depth":
-                cam, pc = _depth_frame(f, 68, 120, "cpu")
-                steps = cfg.dda_steps(30.0)
-                scratch = I.dedup_scratch(cfg, f, "cpu")
-                keys, valid = I.alloc_candidates_depth(cfg, cam, pc, steps,
-                                                       frame=f,
-                                                       scratch=scratch)
-                rk, rv = I.alloc_candidates_depth_ref(cfg, cam, pc, steps,
-                                                      frame=f)
-            else:
-                cam, pts, _ = _scan(f, 16, 128, "cpu")
-                steps = cfg.dda_steps(100.0)
-                scratch = I.dedup_scratch(cfg, f, "cpu")
-                keys, valid = I.alloc_candidates_points(cfg, cam, pts, steps,
-                                                        None, scratch)
-                rk, rv = I.alloc_candidates_points_ref(cfg, cam, pts, steps)
-            assert torch.equal(keys, rk) and torch.equal(valid, rv)
-            assert scratch.cells.dtype == torch.int64
-            got = I.alloc_blocks(cfg, table, keys, valid, f, scratch)
-            assert got == _alloc_twin(cfg, twin, rk, rv, f)
-            assert got[0] > 0
-            _same_table(table, twin)
-        assert all(COUNTS[k] == before[k] for k in KERNELS)
-        assert table.high_count < cfg.num_blocks
+            cam, pts, _ = _scan(f, 16, 128, "cpu")
+            steps = cfg.dda_steps(100.0)
+            scratch = AB.dedup_scratch(cfg, f, "cpu")
+            keys, valid = AB.alloc_candidates_points(cfg, cam, pts, steps,
+                                                     None, scratch)
+            rk, rv = AB.alloc_candidates_points_ref(cfg, cam, pts, steps)
+        assert torch.equal(keys, rk) and torch.equal(valid, rv)
+        assert scratch.cells.dtype == torch.int32
+        got = I.alloc_blocks(cfg, table, keys, valid, f, scratch)
+        assert got == _alloc_twin(cfg, twin, rk, rv, f)
+        assert got[0] > 0
+        _same_table(table, twin)
+    assert all(COUNTS[k] == before[k] for k in KERNELS)
+    assert table.high_count < cfg.num_blocks
 
 
 def test_insert_on_cpu_is_the_twin():
-    """H.insert on CPU tensors: insert_ref's info and table, one int res
-    for every key or a tensor, and the key count."""
+    """AB.insert on CPU tensors: the twin H.insert's info and table, one
+    int res for every key or a tensor, and the key count, also where a
+    stats tensor holds it and padded rows follow."""
     rng = np.random.default_rng(3)
     table = H.make_table(256, 16)
     twin = _clone(table)
@@ -206,11 +198,19 @@ def test_insert_on_cpu_is_the_twin():
                                           axis=0).astype(np.int32))
         r = (torch.from_numpy((rng.random(keys.shape[0]) < 0.5)
                               .astype(np.int32)) if res is None else res)
-        info = H.insert(table, keys, r)
-        ref = H.insert_ref(twin, keys, r if res is None else torch.full(
-            (keys.shape[0],), res, dtype=torch.int32))
-        assert info["count"] == keys.shape[0]
-        _same_info(info, ref, keys.shape[0])
+        n = keys.shape[0]
+        if res is None:     # a padded batch, its count in stats[0]
+            pad = torch.full((5, 3), 99, dtype=torch.int32)
+            stats = torch.tensor([n, 0, 0, 0], dtype=torch.int32)
+            info = AB.insert(table, torch.cat([keys, pad]),
+                             torch.cat([r, torch.zeros(5, dtype=torch.int32)]),
+                             stats)
+        else:
+            info = AB.insert(table, keys, r)
+        ref = H.insert(twin, keys, r if res is None else torch.full(
+            (n,), res, dtype=torch.int32))
+        assert info["count"] == n
+        _same_info(info, ref, n)
         _same_table(table, twin)
     assert table.low_count < 32 and table.high_count < 252
 
@@ -226,34 +226,27 @@ def cuda():
     return torch.device("cuda")
 
 
-def _rounds_on_card(cfg, tk, tr, keys, valid, rk, rv, scratch, frame):
-    """One frame's rounds, kernels (tk) against twins (tr), step by step.
-    `scratch` is round 0's, filled by the kernel walk.  Returns the keys
-    submitted."""
+def _round_on_card(cfg, tk, tr, keys, valid, rk, rv, scratch, frame):
+    """One frame's allocation, kernels (tk) against twins (tr), step by
+    step.  `scratch` is the frame's, filled by the kernel walk.  Returns
+    the keys submitted."""
     dev = keys.device
-    submitted = 0
     assert torch.equal(valid, rv)
     assert torch.equal(keys[valid], rk[rv])
-    for rnd in range(cfg.alloc_rounds):
-        if rnd:
-            scratch = I.dedup_scratch(cfg, frame, dev, rnd)
-            AB.scatter(keys, valid, scratch.cells, AB.salt32(scratch.salt))
-        ref = _twin_scratch(cfg, frame, dev, rnd, rk, rv)
-        assert scratch.cells.dtype == torch.int32
-        assert torch.equal(scratch.cells.long(), ref.cells)
-        uk, stats = AB.compact(scratch.cells, keys, cfg.max_alloc_per_frame)
-        ur = I.dedup_compact(rk, ref.cells, cfg.max_alloc_per_frame)
-        n = int(stats[0])
-        assert n == ur.shape[0]
-        assert torch.equal(uk[:n], ur)
-        info = H.insert(tk, uk, 0, stats)
-        iref = H.insert_ref(tr, ur, torch.zeros(n, dtype=torch.int32,
-                                                device=dev))
-        assert info["count"] == n
-        _same_info(info, iref, n)
-        _same_table(tk, tr)
-        submitted += n
-    return submitted
+    ref = _twin_scratch(cfg, frame, dev, rk, rv)
+    assert scratch.cells.dtype == ref.cells.dtype == torch.int32
+    assert torch.equal(scratch.cells, ref.cells)
+    uk, stats = AB.compact(keys, scratch, cfg.max_alloc_per_frame)
+    ur, rstats = AB.dedup_compact(rk, ref, cfg.max_alloc_per_frame)
+    n = int(stats[0])
+    assert n == ur.shape[0] == int(rstats[0])
+    assert torch.equal(uk[:n], ur)
+    info = AB.insert(tk, uk, 0, stats)
+    iref = H.insert(tr, ur, torch.zeros(n, dtype=torch.int32, device=dev))
+    assert info["count"] == n
+    _same_info(info, iref, n)
+    _same_table(tk, tr)
+    return n
 
 
 @pytest.mark.gpu
@@ -266,13 +259,13 @@ def test_depth_frames_match_twins_on_card(cuda):
     news = []
     for f in range(6):
         cam, pc = _depth_frame(f, 680, 1200, cuda)
-        scratch = I.dedup_scratch(cfg, f, cuda)
-        keys, valid = I.alloc_candidates_depth(cfg, cam, pc, steps, frame=f,
+        scratch = AB.dedup_scratch(cfg, f, cuda)
+        keys, valid = AB.alloc_candidates_depth(cfg, cam, pc, steps, frame=f,
                                                scratch=scratch)
-        rk, rv = I.alloc_candidates_depth_ref(cfg, cam, pc, steps, frame=f)
+        rk, rv = AB.alloc_candidates_depth_ref(cfg, cam, pc, steps, frame=f)
         assert keys.shape[0] == 7 * 340 * 600
         free = tk.high_count
-        sub = _rounds_on_card(cfg, tk, tr, keys, valid, rk, rv, scratch, f)
+        sub = _round_on_card(cfg, tk, tr, keys, valid, rk, rv, scratch, f)
         news.append(free - tk.high_count)
         if f == 0:     # a fresh map: every served key pending
             assert sub == news[0] == cfg.max_alloc_per_frame
@@ -289,12 +282,12 @@ def test_points_frames_match_twins_on_card(cuda, projective):
     assert steps == 4
     for f in (0, 1, 2, 3, 4, 4):     # the pose of scan 4 twice
         cam, pts, nrm = _scan(f, 64, 1024, cuda, normals=not projective)
-        scratch = I.dedup_scratch(cfg, f, cuda)
-        keys, valid = I.alloc_candidates_points(cfg, cam, pts, steps, nrm,
+        scratch = AB.dedup_scratch(cfg, f, cuda)
+        keys, valid = AB.alloc_candidates_points(cfg, cam, pts, steps, nrm,
                                                 scratch)
-        rk, rv = I.alloc_candidates_points_ref(cfg, cam, pts, steps, nrm)
+        rk, rv = AB.alloc_candidates_points_ref(cfg, cam, pts, steps, nrm)
         free = tk.high_count
-        sub = _rounds_on_card(cfg, tk, tr, keys, valid, rk, rv, scratch, f)
+        sub = _round_on_card(cfg, tk, tr, keys, valid, rk, rv, scratch, f)
         assert sub > 0
     assert free == tk.high_count       # the repeated scan found every key
 
@@ -314,7 +307,7 @@ def test_insert_edge_cases_on_card(cuda):
         n = keys.shape[0]
         rt = (torch.full((n,), res, dtype=torch.int32, device=cuda)
               if isinstance(res, int) else res.to(cuda))
-        iref = H.insert_ref(tr, keys, rt)
+        iref = H.insert(tr, keys, rt)
         if padded:
             pad = torch.randint(-5, 5, (9, 3), dtype=torch.int32,
                                 device=cuda)
@@ -322,9 +315,9 @@ def test_insert_edge_cases_on_card(cuda):
                                  device=cuda)
             rp = torch.cat([rt, torch.zeros(9, dtype=torch.int32,
                                              device=cuda)])
-            info = H.insert(tk, torch.cat([keys, pad]), rp, stats)
+            info = AB.insert(tk, torch.cat([keys, pad]), rp, stats)
         else:
-            info = H.insert(tk, keys, res if isinstance(res, int) else rt)
+            info = AB.insert(tk, keys, res if isinstance(res, int) else rt)
         assert info["count"] == n
         _same_info(info, iref, n)
         _same_table(tk, tr)
@@ -363,8 +356,8 @@ def test_insert_edge_cases_on_card(cuda):
     tr2 = _clone(tk2)
     keys = torch.from_numpy(np.unique(rng.integers(-9, 9, (400, 3)), axis=0)
                             .astype(np.int32)).to(cuda)
-    info = H.insert(tk2, keys, 0)
-    iref = H.insert_ref(tr2, keys, torch.zeros(keys.shape[0],
+    info = AB.insert(tk2, keys, 0)
+    iref = H.insert(tr2, keys, torch.zeros(keys.shape[0],
                                                dtype=torch.int32,
                                                device=cuda))
     _same_info(info, iref, keys.shape[0])
@@ -373,51 +366,54 @@ def test_insert_edge_cases_on_card(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["rounds2", "tile"])
+@pytest.mark.parametrize("case", ["scatter", "tile"])
 def test_alloc_blocks_variants_on_card(cuda, case):
-    """alloc_blocks through its kernels against the plain rounds of the
-    twins: alloc_rounds = 2 (the scatter alone in round 1) and the tile
-    path that GeoWrapper takes (alloc_tile = 4: K7's tile entry, near and
-    far bands, the tile's pixel rotating)."""
-    kw = dict(alloc_rounds=2) if case == "rounds2" else dict(alloc_tile=4)
+    """alloc_blocks through its kernels against the plain allocation of
+    the twins: the scatter alone (K7's scatter entry, where the walk left
+    the scratch empty) and the tile path that GeoWrapper takes
+    (alloc_tile = 4: K7's tile entry, near and far bands, the tile's
+    pixel rotating)."""
+    kw = dict(alloc_tile=4) if case == "tile" else {}
     cfg = dataclasses.replace(ORBIT, max_alloc_per_frame=1 << 11, **kw)
     tk = H.make_table(cfg.num_blocks, cfg.num_buckets, cuda)
     tr = _clone(tk)
     steps = cfg.dda_steps(30.0)
     for f in range(4):
         cam, pc = _depth_frame(f, 680, 1200, cuda)
-        scratch = I.dedup_scratch(cfg, f, cuda)
-        keys, valid = I.alloc_candidates_depth(cfg, cam, pc, steps, frame=f,
-                                               scratch=scratch)
-        rk, rv = I.alloc_candidates_depth_ref(cfg, cam, pc, steps, frame=f)
+        scratch = AB.dedup_scratch(cfg, f, cuda) if case == "tile" else None
+        keys, valid = AB.alloc_candidates_depth(cfg, cam, pc, steps, frame=f,
+                                                scratch=scratch)
+        rk, rv = AB.alloc_candidates_depth_ref(cfg, cam, pc, steps, frame=f)
         assert torch.equal(valid, rv) and torch.equal(keys[valid], rk[rv])
         got = I.alloc_blocks(cfg, tk, keys, valid, f, scratch)
         assert got == _alloc_twin(cfg, tr, rk, rv, f)
         _same_table(tk, tr)
         if case == "tile":     # tiles past the image's edge, row offset
             sub = pc[1:678, 2:1199]
-            keys, valid = I.alloc_candidates_depth(cfg, cam, sub, steps,
+            keys, valid = AB.alloc_candidates_depth(cfg, cam, sub, steps,
+                                                    row0=1, frame=f)
+            rk, rv = AB.alloc_candidates_depth_ref(cfg, cam, sub, steps,
                                                    row0=1, frame=f)
-            rk, rv = I.alloc_candidates_depth_ref(cfg, cam, sub, steps,
-                                                  row0=1, frame=f)
             assert torch.equal(valid, rv)
             assert torch.equal(keys[valid], rk[rv])
 
 
 @pytest.mark.gpu
 def test_one_host_read_a_round_on_card(cuda):
-    """On a card a round launches K7, K8 and K9 (their COUNTS rise) and
-    reads the host once; alloc_blocks takes no twin."""
-    cfg = dataclasses.replace(ORBIT, alloc_rounds=2)
+    """On a card an allocation launches K7, K8 and K9 (their COUNTS rise)
+    and reads the host once, whether the walk filled the scratch (K7's
+    walk) or not (K7's scatter); alloc_blocks takes no twin."""
+    cfg = ORBIT
     tk = H.make_table(cfg.num_blocks, cfg.num_buckets, cuda)
     for f in range(3):
         cam, pc = _depth_frame(f, 680, 1200, cuda)
+        fused = f != 1
         before = {k: COUNTS[k] for k in (*KERNELS, SYNCS)}
-        scratch = I.dedup_scratch(cfg, f, cuda)
-        keys, valid = I.alloc_candidates_depth(cfg, cam, pc, 7, frame=f,
-                                               scratch=scratch)
+        scratch = AB.dedup_scratch(cfg, f, cuda) if fused else None
+        keys, valid = AB.alloc_candidates_depth(cfg, cam, pc, 7, frame=f,
+                                                scratch=scratch)
         I.alloc_blocks(cfg, tk, keys, valid, f, scratch)
         got = {k: COUNTS[k] - before[k] for k in before}
-        assert got == {"alloc_walk": 1, "alloc_scatter": 1,
-                       "alloc_compact": 2, "alloc_lookup": 2,
-                       "alloc_insert": 2, SYNCS: 2}, got
+        assert got == {"alloc_walk": 1, "alloc_scatter": int(not fused),
+                       "alloc_compact": 1, "alloc_lookup": 1,
+                       "alloc_insert": 1, SYNCS: 1}, got

@@ -9,7 +9,7 @@ tensor.  On a real coarsening frame of each path, the mask gives what the
 picked window gave: the stats' res-0 count, GC's freed blocks (on K1's
 flags in the RGB-D step, on the pool in the point-centric LiDAR step)
 and a starve after the coarsening on the same frame, pool and table
-equal bit for bit.  Another case holds the CPU's coarsen_by_variance to
+equal bit for bit.  Another case holds the CPU's coarsen_blocks.coarsen to
 the twin (no kernel launch counted).
 
 The `gpu` cases (`python -m pytest --noconftest -m gpu
@@ -39,7 +39,9 @@ import test_torch_multires as MR
 from mrhash_tpu_torch import params as P
 from mrhash_tpu_torch.core import pipeline
 from mrhash_tpu_torch.core.state import MapConfig, MapState, make_state
+from mrhash_tpu_torch.ops import alloc_blocks as AB
 from mrhash_tpu_torch.ops import camera as C
+from mrhash_tpu_torch.ops import coarsen_blocks as CB
 from mrhash_tpu_torch.ops import hashtable as H
 from mrhash_tpu_torch.ops import integrate as I
 from mrhash_tpu_torch.utils.profiler import COUNTS, SYNCS
@@ -93,7 +95,7 @@ def _rgbd_coarsening_frame():
     d, rot, t = frames[3]
     cam = C.with_pose(C.make_camera(*MR.CAM), rot, t)
     pc = C.get_depth(cam, C.compute_cloud(cam, torch.from_numpy(d)))
-    keys, valid = I.alloc_candidates_depth(
+    keys, valid = AB.alloc_candidates_depth(
         cfg, cam, pc, cfg.dda_steps(float(cfg.max_integration_distance)),
         frame=state.frame)
     I.alloc_blocks(cfg, state.table, keys, valid, state.frame)
@@ -122,7 +124,7 @@ def _points_coarsening_frame():
     cam, pts = LI._port_cam(scans[2][0]), torch.from_numpy(scans[2][1])
     normals = torch.from_numpy(LI._normals(2))
     mdist = float(cfg.max_integration_distance)
-    keys, valid = I.alloc_candidates_points(cfg, cam, pts,
+    keys, valid = AB.alloc_candidates_points(cfg, cam, pts,
                                             cfg.dda_steps(mdist), normals)
     I.alloc_blocks(cfg, state.table, keys, valid, state.frame)
     window, _ = I.compact_window(cfg, state.table)
@@ -170,14 +172,14 @@ def test_freed_mask_equals_the_picked_window(path):
 
 
 def test_coarsen_on_cpu_takes_the_twin():
-    """coarsen_by_variance on CPU tensors is coarsen_by_variance_ref: the
+    """CB.coarsen on CPU tensors is coarsen_by_variance_ref: the
     same result and no kernel launch."""
     cfg, state, slots, bpos, decide = _single_res_map("cpu", 50)
     twin = _clone(state)
     n0 = {k: COUNTS[k] for k in KERNELS}
-    got = I.coarsen_by_variance(cfg, state.table, state.pool, slots, bpos,
+    got = CB.coarsen(cfg, state.table, state.pool, slots, bpos,
                                 decide)
-    ref = I.coarsen_by_variance_ref(cfg, twin.table, twin.pool, slots, bpos,
+    ref = CB.coarsen_by_variance_ref(cfg, twin.table, twin.pool, slots, bpos,
                                     decide)
     assert {k: COUNTS[k] - n0[k] for k in KERNELS} == dict.fromkeys(
         KERNELS, 0)
@@ -226,11 +228,11 @@ def _step(cfg, state, twin, slots, bpos, decide, exact=("weight", "rgbp")):
     the pool's largest sdf and sumsq gaps."""
     n0 = {k: COUNTS[k] for k in KERNELS}
     s0 = COUNTS[SYNCS]
-    got = I.coarsen_by_variance(cfg, state.table, state.pool, slots, bpos,
+    got = CB.coarsen(cfg, state.table, state.pool, slots, bpos,
                                 decide)
     syncs = COUNTS[SYNCS] - s0
     launches = {k: COUNTS[k] - n0[k] for k in KERNELS}
-    ref = I.coarsen_by_variance_ref(cfg, twin.table, twin.pool, slots, bpos,
+    ref = CB.coarsen_by_variance_ref(cfg, twin.table, twin.pool, slots, bpos,
                                     decide)
     torch.cuda.synchronize()
     for name, g, r in zip(("new_slots", "new_mask", "freed"), got, ref):

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from mrhash_tpu_torch.core.state import MapConfig, make_state, pack_rgb
+from mrhash_tpu_torch.ops import alloc_blocks as AB
 from mrhash_tpu_torch.ops import camera as C
 from mrhash_tpu_torch.ops import fused_integrate as FI
 from mrhash_tpu_torch.ops import integrate as I
@@ -57,7 +58,7 @@ def _window(device):
     for i, d in enumerate(depths):
         pc_depth = C.get_depth(cam, C.compute_cloud(
             cam, torch.from_numpy(d).to(device)))
-        keys, valid = I.alloc_candidates_depth(
+        keys, valid = AB.alloc_candidates_depth(
             cfg, cam, pc_depth, cfg.dda_steps(5.0), frame=i)
         I.alloc_blocks(cfg, st.table, keys, valid, i)
     _, bpos, bptr, bres = I.compact_active(cfg, st.table, cam)

@@ -39,6 +39,7 @@ from mrhash_tpu_torch import params as P
 from mrhash_tpu_torch.core import convert
 from mrhash_tpu_torch.core.state import MapConfig, make_state
 from mrhash_tpu_torch.geowrapper import GeoWrapper
+from mrhash_tpu_torch.ops import alloc_blocks as AB
 from mrhash_tpu_torch.ops import camera as C
 from mrhash_tpu_torch.ops import fused_integrate_points as FIP
 from mrhash_tpu_torch.ops import integrate as I
@@ -218,7 +219,7 @@ def test_alloc_candidates_points_matches_reference():
     steps = cfg.dda_steps(MAX_D)
     t, pts = _frames()[2]
     pts[5] = 0.0                      # a point with no return walks nothing
-    keys, valid = I.alloc_candidates_points(cfg, _port_cam(t),
+    keys, valid = AB.alloc_candidates_points(cfg, _port_cam(t),
                                             torch.from_numpy(pts), steps)
     with jax.disable_jit():
         jk, jv = JI.alloc_candidates_points(
@@ -367,7 +368,7 @@ def test_fused_points_matches_reference_from_carried_state(ref):
     state = convert.from_reference(states[1])
     cam = _port_cam(t)
     points = torch.from_numpy(pts)
-    keys, valid = I.alloc_candidates_points(cfg, cam, points,
+    keys, valid = AB.alloc_candidates_points(cfg, cam, points,
                                             cfg.dda_steps(MAX_D))
     I.alloc_blocks(cfg, state.table, keys, valid, state.frame)
     _, bpos, bptr, bres = I.compact_active(cfg, state.table)
@@ -506,7 +507,7 @@ def test_kernel_matches_twin_on_card(cuda):
     for t, pts in _frames():
         cam = _port_cam(t, cuda)
         points = torch.from_numpy(pts).to(cuda)
-        keys, valid = I.alloc_candidates_points(cfg, cam, points,
+        keys, valid = AB.alloc_candidates_points(cfg, cam, points,
                                                 cfg.dda_steps(MAX_D))
         I.alloc_blocks(cfg, st.table, keys, valid, st.frame)
         st.frame += 1

@@ -16,7 +16,7 @@ the port drops none, P56).
 
 (a)-(e) run in order as one test (see its docstring):
 
-- (a) the voxel-level walk (_dda_visit, block_level=False) and the
+- (a) the voxel-level walk (dda_visit, block_level=False) and the
   normal-direction allocation keys equal the reference's exactly;
 - (b) lookup_dedup: every distinct walk key in a window block is found;
   at 2^22 cells the reference drops nothing and the results are equal; at
@@ -49,6 +49,7 @@ import torch
 from mrhash_tpu_torch import params as P
 from mrhash_tpu_torch.core import pipeline
 from mrhash_tpu_torch.core.state import MapConfig, make_state
+from mrhash_tpu_torch.ops import alloc_blocks as AB
 from mrhash_tpu_torch.ops import camera as C
 from mrhash_tpu_torch.ops import coords as X
 from mrhash_tpu_torch.ops import hashtable as H
@@ -96,7 +97,7 @@ def _band(cfg, pts, nrm, t):
     band along the normal) and the ray validity, in the port."""
     points = torch.from_numpy(pts)
     cam = _port_cam(t)
-    n_dir, rng = I._unit(torch.from_numpy(nrm))[0], I._unit(points)[1]
+    n_dir, rng = X.unit(torch.from_numpy(nrm))[0], X.unit(points)[1]
     trunc = X.get_truncation(rng, cfg.sdf_truncation, 0.0)
     d_min = torch.clamp(rng - trunc, max=MAX_D)
     d_max = torch.clamp(rng + trunc, max=MAX_D)
@@ -109,7 +110,7 @@ def _walk_keys(cfg, i):
     """Scan i's voxel walk (point-to-plane) as block keys + visit mask."""
     t, pts = _frames()[i]
     pw_min, pw_max, ok = _band(cfg, pts, _normals(i), t)
-    vox, visit = I._dda_visit(cfg, pw_min, pw_max, ok,
+    vox, visit = AB.dda_visit(cfg, pw_min, pw_max, ok,
                               cfg.dda_voxel_steps(MAX_D), block_level=False)
     blk = X.virtual_voxel_pos_to_sdf_block(vox, cfg.virtual_voxel_size,
                                            cfg.voxel_extents)
@@ -131,11 +132,11 @@ def _check_walks():
     t, pts = _frames()[2]
     nrm = _normals(2)
     pw_min, pw_max, ok = _band(cfg, pts, nrm, t)
-    vox, visit = I._dda_visit(cfg, pw_min, pw_max, ok, steps,
+    vox, visit = AB.dda_visit(cfg, pw_min, pw_max, ok, steps,
                               block_level=False)
     pts0 = pts.copy()
     pts0[5] = 0.0             # no return: allocates nothing
-    keys, valid = I.alloc_candidates_points(
+    keys, valid = AB.alloc_candidates_points(
         cfg, _port_cam(t), torch.from_numpy(pts0), cfg.dda_steps(MAX_D),
         torch.from_numpy(nrm))
     with jax.disable_jit():
@@ -257,7 +258,7 @@ def _check_integrate(variant):
 
     state = copy.deepcopy(carried)
     cam, points = _port_cam(t), torch.from_numpy(pts)
-    keys, valid = I.alloc_candidates_points(
+    keys, valid = AB.alloc_candidates_points(
         cfg, cam, points, cfg.dda_steps(MAX_D), torch.from_numpy(nrm))
     I.alloc_blocks(cfg, state.table, keys, valid, state.frame)
     window = I.compact_active(cfg, state.table)

@@ -36,7 +36,9 @@ from mrhash_tpu_torch.core import convert, pipeline
 from mrhash_tpu_torch.core.state import (VoxelPool, MapConfig, make_state,
                                          pack_rgb)
 from mrhash_tpu_torch.geowrapper import GeoWrapper
+from mrhash_tpu_torch.ops import alloc_blocks as AB
 from mrhash_tpu_torch.ops import camera as C
+from mrhash_tpu_torch.ops import coarsen_blocks as CB
 from mrhash_tpu_torch.ops import fused_integrate as FI
 from mrhash_tpu_torch.ops import fused_integrate_points as FIP
 from mrhash_tpu_torch.ops import hashtable as H
@@ -303,7 +305,7 @@ def _mixed_window(ref_state, frame, cfg):
     d, rot, t = frame
     cam = C.with_pose(C.make_camera(*CAM), rot, t)
     pc_depth = C.get_depth(cam, C.compute_cloud(cam, torch.from_numpy(d)))
-    keys, valid = I.alloc_candidates_depth(
+    keys, valid = AB.alloc_candidates_depth(
         cfg, cam, pc_depth, cfg.dda_steps(5.0), frame=state.frame)
     I.alloc_blocks(cfg, state.table, keys, valid, state.frame)
     slots, bpos, bptr, bres = I.compact_active(cfg, state.table, cam)
@@ -443,7 +445,7 @@ def test_coarsen_by_variance_matches_reference(downsample):
             jcfg, t, p, jnp.asarray(jslots), *args, decide=jdecide))(
         ref_st.table, ref_st.pool)
 
-    _, new_mask, freed = I.coarsen_by_variance(cfg, state.table, state.pool,
+    _, new_mask, freed = CB.coarsen(cfg, state.table, state.pool,
                                                slots, bpos, decide)
     np.testing.assert_array_equal(freed.numpy(), np.asarray(freed_r)[:A])
     assert int(freed.sum()) == 100 and bool(new_mask.all())
@@ -624,7 +626,7 @@ def test_k3_twin_on_mixed_window_matches_reference(lidar_ref):
     state = convert.from_reference(states[1])
     cam = _lidar_cam(t)
     points = torch.from_numpy(pts)
-    keys, valid = I.alloc_candidates_points(cfg, cam, points,
+    keys, valid = AB.alloc_candidates_points(cfg, cam, points,
                                             cfg.dda_steps(L_MAX))
     I.alloc_blocks(cfg, state.table, keys, valid, state.frame)
     slots, bpos, bptr, bres = I.compact_active(cfg, state.table)

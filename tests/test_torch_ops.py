@@ -24,10 +24,10 @@ from mrhash_tpu.ops import coords as JX
 from mrhash_tpu.ops import hashtable as JH
 from mrhash_tpu.ops import integrate as JI
 from mrhash_tpu_torch.core.state import MapConfig
+from mrhash_tpu_torch.ops import alloc_blocks as AB
 from mrhash_tpu_torch.ops import camera as C
 from mrhash_tpu_torch.ops import coords as X
 from mrhash_tpu_torch.ops import hashtable as H
-from mrhash_tpu_torch.ops import integrate as I
 
 torch.set_num_threads(1)
 
@@ -199,13 +199,14 @@ def test_dedup_candidates_matches_reference():
     base = rng.integers(-60, 60, (3000, 3)).astype(np.int32)
     keys = base[rng.integers(0, 3000, 40000)]
     valid = rng.random(40000) < 0.9
+    cfg = MapConfig(max_alloc_per_frame=4096, dedup_scratch_factor=4)
     for salt in (0, 1, 17):
-        got = I.dedup_candidates(torch.from_numpy(keys),
-                                 torch.from_numpy(valid), salt, 4096 * 4,
-                                 4096)
+        got, stats = AB.dedup(cfg, torch.from_numpy(keys),
+                              torch.from_numpy(valid), salt)
         rk, rv = JI.dedup_candidates(jnp.asarray(keys), jnp.asarray(valid),
                                      jnp.int32(salt), 4096 * 4, 4096)
         _same(got, np.asarray(rk)[np.asarray(rv)])
+        assert int(stats[0]) == got.shape[0]
 
 
 def test_insert_lookup_free_match_reference():

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from mrhash_tpu_torch.core.state import MapConfig, make_state
+from mrhash_tpu_torch.ops import alloc_blocks as AB
 from mrhash_tpu_torch.ops import camera as C
 from mrhash_tpu_torch.ops import integrate as I
 from mrhash_tpu_torch.ops import sample_image as SI
@@ -95,7 +96,7 @@ def _integrated_window(frames=3):
         d = np.round((base + rng.normal(0, 0.01, base.shape)) * 2048) / 2048
         pc_depth = C.get_depth(cam, C.compute_cloud(
             cam, torch.from_numpy(d.astype(np.float32))))
-        keys, valid = I.alloc_candidates_depth(cfg, cam, pc_depth,
+        keys, valid = AB.alloc_candidates_depth(cfg, cam, pc_depth,
                                                cfg.dda_steps(5.0), frame=i)
         I.alloc_blocks(cfg, st.table, keys, valid, i)
         slots, bpos, bptr, bres = I.compact_active(cfg, st.table, cam)

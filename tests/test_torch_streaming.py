@@ -32,11 +32,10 @@ import torch
 from mrhash_tpu_torch import params as P
 from mrhash_tpu_torch.core import convert, pipeline
 from mrhash_tpu_torch.core import streaming as S
-from mrhash_tpu_torch.core.state import MapConfig, make_state
+from mrhash_tpu_torch.core.state import MapConfig, clear_blocks, make_state
 from mrhash_tpu_torch.geowrapper import GeoWrapper
 from mrhash_tpu_torch.ops import camera as C
 from mrhash_tpu_torch.ops import hashtable as H
-from mrhash_tpu_torch.ops import integrate as I
 
 torch.set_num_threads(1)
 
@@ -228,7 +227,7 @@ def test_eviction_gather_matches_transfer_pack(multires):
     ref = _reference_state(state)
     pos, ptr, res = S.plan_evictions(cfg, state.table, CAM_POS, RADIUS)
     fields = S.gather_blocks(state.pool, ptr, res)
-    I._clear_blocks(state.pool, ptr, res)
+    clear_blocks(state.pool, ptr, res)
     got = {tuple(int(v) for v in pos[i]): (int(res[i]), {
         f: fields[j][i].numpy() for j, f in enumerate(FIELDS)})
         for i in range(pos.shape[0])}
