@@ -6,7 +6,7 @@ card.
 
 Phases (any failure raises: non-zero exit, no result line):
   1. probe   — CUDA present; device, CUDA runtime, nvidia-smi, nvcc;
-  2. build   — compile the kernels K1-K6 from mrhash_tpu_torch/csrc (one
+  2. build   — compile the kernels K1-K14 from mrhash_tpu_torch/csrc (one
                nvcc per source, started together);
   3. compare — each kernel against its plain PyTorch twin on the inputs its
                path gives it (K1, K2: the RGB-D path after 40 frames at
@@ -21,7 +21,10 @@ Phases (any failure raises: non-zero exit, no result line):
                cap, K = 128; K7-K9: the multi-res orbit's frame 40 and the
                LiDAR slice's scan 20; K10-K12: a coarsening step of
                C_SERVED blocks on the LiDAR slice's map, each launch timed
-               alone after the map is restored), then timed in turns (twin,
+               alone after the map is restored; K13, K14: the multi-res
+               LiDAR slice's scan 20, its window and a drive-sized one,
+               bit for bit, each timed alone behind a spin kernel beside
+               the twin's eager time), then timed in turns (twin,
                kernel, library, library, kernel, twin) by CUDA-graph replay
                and CUDA events; K2 also on phase 11's spherical z-buffer
                (64x1024, after 10 point-centric scans); each whole slice
@@ -43,12 +46,14 @@ Phases (any failure raises: non-zero exit, no result line):
   4. RGB-D   — GeoWrapper(device="cuda") at replica.cfg's settings, 120
                frames of bench.py's box-room orbit (starvation fires on
                frame 100), with the kernels' launch counts taken over that
-               run only (K10-K12 none: one resolution never coarsens);
-               then streamAllOut (phase 9 meshes this path);
+               run only (K10-K12 none: one resolution never coarsens;
+               K13, K14 none: the LiDAR raster and projection); then
+               streamAllOut (phase 9 meshes this path);
   5. LiDAR   — GeoWrapper(device="cuda") at newer_college.cfg's settings, 40
                scans of a 64x1024 sensor driving 0.5 m per scan past a
                ground plane and a 25 m cylinder wall, with K3's launch
-               count taken over that run only; then streamAllOut +
+               count taken over that run only (and K13's three launches and
+               K14's one on every scan); then streamAllOut +
                extractMesh, whose vertices must lie on the plane or the
                wall;
   6. GS      — GeoWrapper(device="cuda", gs_optimization_param_path=
@@ -64,12 +69,13 @@ Phases (any failure raises: non-zero exit, no result line):
                settings (sdf_var_threshold 1.0, 2^13 allocations per
                frame): frames/s, res-0 and res-1 block counts, peak memory,
                K1's res-0 and res-1 launches, K2's and K10-K12's (at least
-               one each: the map coarsens) over that run; then the mesh
-               on the walls;
+               one each: the map coarsens) and K13's and K14's (none) over
+               that run; then the mesh on the walls;
   8. multi-res LiDAR — phase 5 at bench_lidar(multires=True)'s settings
                (sdf_var_threshold 1.0, 512 coarsenings per scan): scans/s,
                res-1 blocks, K3's res-0 and res-1 launches and K10-K12's
-               (at least one each); then the mesh;
+               (at least one each), K13's and K14's (3 and 1 a scan);
+               then the mesh;
   9. streaming walk — tools/bench_walk.py's settings (1200x680, 1 cm, max
                depth 4 m, 2^16 blocks): 150 + 120 frames down the 1.5 m
                square tube at 8 cm/frame, so the watermark fires and the
@@ -184,6 +190,7 @@ K3_NAMES = ("fused_integrate_points_rows",
 ALLOC_NAMES = ("alloc_walk", "alloc_scatter", "alloc_compact", "alloc_lookup",
                "alloc_insert")
 COARSEN_NAMES = ("coarsen_select", "coarsen_merge", "coarsen_scatter")
+SCAN_NAMES = ("raster_scan", "project_window")   # K13 (3 launches), K14
 
 
 def reset_launches(*names):
@@ -489,7 +496,7 @@ def compare_kernels(depths, rgb):
 
     # K2 at the starvation readback's shapes: the frame-41 window's voxels
     # and their z-buffer (ops/integrate.py::starve_mask)
-    pi, valid = I._block_voxel_grid(bpos, bres)
+    pi, valid = X.block_voxel_grid(bpos, bres)
     pcam = C.world_to_cam(cam, X.virtual_voxel_pos_to_world(
         cfg.virtual_voxel_size, pi))
     row, col, ok = C.project_point(cam, pcam)
@@ -1256,6 +1263,121 @@ def compare_lidar_kernel(clouds, multires=False):
     return rec
 
 
+def drive_window(cfg, cam, points, n=5000):
+    """A drive-sized window around a scan: the blocks of its returns in the
+    world and their 3^3 neighbours, the first n in a shuffled order, every
+    other one at res 1.  Returns (bpos i32[A,3], bres i32[A]) on the
+    scan's device."""
+    import torch
+    dev = points.device
+    side = 8 * cfg.virtual_voxel_size
+    pw = points.double() @ cam.rot.double().T + cam.trans.double()
+    blk = torch.floor(pw / side).to(torch.int32)
+    near = torch.stack(torch.meshgrid(
+        *[torch.arange(-1, 2, device=dev)] * 3, indexing="ij"),
+        -1).reshape(-1, 3).to(torch.int32)
+    blk = torch.unique((blk[:, None] + near).reshape(-1, 3), dim=0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    blk = blk[torch.randperm(blk.shape[0], generator=g, device=dev)][:n]
+    bres = (torch.arange(blk.shape[0], device=dev) % 2).to(torch.int32)
+    return blk.contiguous(), bres
+
+
+def compare_scan_raster_kernels(clouds):
+    """K13 and K14 (ops/scan_raster.py, csrc/scan_raster.cu) against their
+    twins on the card, bit for bit: the image and the mapping of scan
+    L_COMPARE_AT of the multi-res LiDAR slice (the loop's 64x1024 shape),
+    and pix and r_vox over two windows, the slice's map after L_COMPARE_AT
+    scans and a drive-sized one (drive_window).  Then each kernel's time,
+    a call timed alone with CUDA events behind a spin kernel (so the
+    events time the device, not the host's enqueue; K13's three launches
+    together), beside its byte bound and the twin's eager time.  Returns
+    {name: record}."""
+    import torch
+
+    from mrhash_tpu_torch.ops import camera as C
+    from mrhash_tpu_torch.ops import integrate as I
+    from mrhash_tpu_torch.ops import scan_raster as SR
+    from mrhash_tpu_torch.utils.profiler import COUNTS
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    dev = torch.device("cuda")
+    gw = make_lidar_wrapper("cuda", clouds[0], multires=True)
+    for i in range(L_COMPARE_AT):
+        feed_lidar(gw, i, clouds)
+    cfg = gw.cfg
+    cam = C.with_pose(gw.camera, gw.curr_rot, lidar_pose(L_COMPARE_AT))
+    points = torch.from_numpy(clouds[L_COMPARE_AT]).to(dev)
+    _, bpos, _, bres = I.compact_active(cfg, gw.state.table)
+    windows = dict(loop=(bpos, bres), drive=drive_window(cfg, cam, points))
+    del gw
+    n0 = {k: COUNTS[k] for k in SCAN_NAMES}
+    img, mapping = SR.raster_scan(cam, points)
+    t_img, t_map = SR.raster_scan_ref(cam, points)
+    assert torch.equal(bits(img), bits(t_img)), "K13 image"
+    assert torch.equal(bits(mapping), bits(t_map)), "K13 mapping"
+    calls = {"raster": (lambda: SR.raster_scan(cam, points),
+                        lambda: SR.raster_scan_ref(cam, points))}
+    on_image = {}
+    for name, (bpos, bres) in windows.items():
+        pix, r_vox = SR.project_window(cfg, cam, bpos, bres, mapping)
+        on_image[name] = int((pix >= 0).sum())
+        t_pix, t_r = SR.project_window_ref(cfg, cam, bpos, bres, t_map)
+        assert torch.equal(pix, t_pix), f"K14 pix ({name})"
+        assert torch.equal(bits(r_vox), bits(t_r)), f"K14 r_vox ({name})"
+        calls[name] = (
+            lambda b=bpos, r=bres: SR.project_window(cfg, cam, b, r,
+                                                     mapping),
+            lambda b=bpos, r=bres: SR.project_window_ref(cfg, cam, b, r,
+                                                         t_map))
+    assert {k: COUNTS[k] - n0[k] for k in SCAN_NAMES} == dict(
+        raster_scan=3, project_window=2), "K13: 3 launches, K14: 1"
+    n, hw = points.shape[0], L_ROWS * L_COLS
+    a = {k: w[0].shape[0] for k, w in windows.items()}
+    log(f"compare K13/K14: scan of {n} points, {int((img > 0).sum())} of "
+        f"{hw} pixels hit; windows {a['loop']} (loop, "
+        f"{int(windows['loop'][1].sum())} at res 1) and {a['drive']} "
+        f"(drive) entries, {on_image['loop']} and {on_image['drive']} "
+        f"lanes on the image; kernels equal their twins bit for bit")
+
+    ms = {k: [] for k in calls}
+    twin_ms = {k: [] for k in calls}
+    for _ in range(TURNS):
+        for k, (kernel, twin) in calls.items():
+            for out, fn, spin in ((ms, kernel, True), (twin_ms, twin, False)):
+                torch.cuda.synchronize()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                if spin:        # the device busy while the host enqueues
+                    torch.cuda._sleep(SPIN_CYCLES)
+                e0.record()
+                fn()
+                e1.record()
+                torch.cuda.synchronize()
+                out[k].append(e0.elapsed_time(e1))
+    # bytes, each input read once and each output written once: K13 the
+    # points (12 B) and the image (4 B a pixel), K14 an entry's bpos and
+    # bres (16 B) and a lane's pix and r_vox (8 B)
+    nb = dict(raster=n * 12 + hw * 4,
+              **{k: a[k] * (16 + 512 * 8) for k in windows})
+    out = {}
+    for k in calls:
+        out[k] = kernel_record(dict(kernel=statistics.median(ms[k]),
+                                    twin=statistics.median(twin_ms[k]),
+                                    library=None), 0, nb[k], 0)
+        out[k].update(points=n, window=a.get(k, 0))
+    log(f"compare K13/K14: K13 {out['raster']['ms']:.4f} ms alone (bound "
+        f"{out['raster']['bound_ms']:.4f}, twin {out['raster']['plain_ms']:.4f}"
+        f" eager); K14 {out['loop']['ms']:.4f} ms over the loop's window "
+        f"(bound {out['loop']['bound_ms']:.4f}, twin "
+        f"{out['loop']['plain_ms']:.4f}), {out['drive']['ms']:.4f} ms over "
+        f"the drive's (bound {out['drive']['bound_ms']:.4f}, twin "
+        f"{out['drive']['plain_ms']:.4f})")
+    return out
+
+
 def small_lidar_inputs(n_starve=0):
     """Phase 3's small LiDAR scene: 3 scans of a 16x128 sensor (beams half
     a column off the raster edges, 12 m wall) moving 0.4 m per scan,
@@ -1479,7 +1601,7 @@ def starve_readback(gw, cam):
     from mrhash_tpu_torch.ops import integrate as I
     cfg = gw.cfg
     _, bpos, _, bres = I.compact_active(cfg, gw.state.table)
-    pi, valid = I._block_voxel_grid(bpos, bres)
+    pi, valid = X.block_voxel_grid(bpos, bres)
     pcam = C.world_to_cam(cam, X.virtual_voxel_pos_to_world(
         cfg.virtual_voxel_size, pi))
     row, col, ok = C.project_point(cam, pcam)
@@ -2110,7 +2232,7 @@ def run_slice(depths, rgb, multires=False, mesh=True):
     gw = make_wrapper("cuda", multires)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(*K1_NAMES, *ALLOC_NAMES, *COARSEN_NAMES)
+    reset_launches(*K1_NAMES, *ALLOC_NAMES, *COARSEN_NAMES, *SCAN_NAMES)
     frame_ms, occupied = [], []
     for i in range(N_FRAMES):
         t0 = time.perf_counter()
@@ -2119,6 +2241,9 @@ def run_slice(depths, rgb, multires=False, mesh=True):
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         occupied.append(gw.last_stats["occupied_blocks"])
     launches = launch_counts(*K1_NAMES, *ALLOC_NAMES, *COARSEN_NAMES)
+    # the LiDAR raster and projection take no part in an RGB-D frame
+    scan = launch_counts(*SCAN_NAMES)
+    assert max(scan.values()) == 0, scan
     # one allocation round a frame, all of it on the kernels (coarsening
     # inserts through K9 too)
     assert launches["alloc_walk"] == launches["alloc_compact"] == N_FRAMES
@@ -2196,7 +2321,7 @@ def run_lidar(clouds, multires=False):
     gw = make_lidar_wrapper("cuda", clouds[0], multires)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(*K3_NAMES, *ALLOC_NAMES, *COARSEN_NAMES)
+    reset_launches(*K3_NAMES, *ALLOC_NAMES, *COARSEN_NAMES, *SCAN_NAMES)
     frame_ms, occupied = [], []
     for i in range(L_FRAMES):
         t0 = time.perf_counter()
@@ -2207,6 +2332,11 @@ def run_lidar(clouds, multires=False):
     launches = launch_counts(*K3_NAMES)
     alloc = launch_counts(*ALLOC_NAMES)
     coarsen = launch_counts(*COARSEN_NAMES)
+    scan = launch_counts(*SCAN_NAMES)
+    # the raster (K13's three launches) and the projection (K14) on every
+    # scan
+    assert scan == dict(raster_scan=3 * L_FRAMES,
+                        project_window=L_FRAMES), scan
     assert alloc["alloc_walk"] == alloc["alloc_compact"] == L_FRAMES, alloc
     assert alloc["alloc_insert"] >= L_FRAMES, alloc
     peak = torch.cuda.max_memory_allocated()
@@ -2214,7 +2344,7 @@ def run_lidar(clouds, multires=False):
     stats = gw.last_stats
     n1 = res1_blocks(gw)
     log(f"{tag}: {L_FRAMES} scans of {L_ROWS}x{L_COLS}, K3 launches "
-        f"{launches}")
+        f"{launches}, K13/K14 launches {scan}")
     log(f"{tag}: window blocks first {occupied[0]} last {occupied[-1]}, "
         f"of them res 0 last {stats['res0_blocks']}; {n1} res-1 blocks; "
         f"high_free {stats['high_free']}, low_free {stats['low_free']}")
@@ -2235,6 +2365,7 @@ def run_lidar(clouds, multires=False):
 
     lidar_mesh(gw, tag)
     return launches, dict(alloc_launches=alloc, coarsen_launches=coarsen,
+                          scan_launches=scan,
                           median_ms=statistics.median(steady),
                           mean_ms=statistics.fmean(steady),
                           fps=1e3 / statistics.fmean(steady),
@@ -3577,6 +3708,13 @@ def main():
         f"{k3r['res1_blocks']} res-1 blocks of a {k3r['window_blocks']}-block "
         f"window; the whole window in one launch {k3r['mixed_ms']:.4f} ms "
         f"(bound {k3r['mixed_bound_ms']:.4f} ms) [{smi}]")
+    ks = compare_scan_raster_kernels(clouds)
+    torch.cuda.empty_cache()
+    for name, k in ks.items():
+        log(f"compare: {'K13' if name == 'raster' else 'K14 ' + name} "
+            f"{k['ms']:.4f} ms (twin {k['plain_ms']:.4f} ms eager, bound "
+            f"{k['bound_ms']:.4f} ms by {k['bound_by']}, {k['bytes']} B; "
+            f"{k['points']} points, window {k['window']}) [{smi}]")
     k2s = compare_k2_spherical(clouds)
     torch.cuda.empty_cache()
     log(f"compare: K2 spherical {k2s['ms']:.4f} ms (twin "
@@ -3788,6 +3926,22 @@ def main():
                          multires_launches=dict(
                              rgbd=mr_launches[name],
                              lidar=mlrun["coarsen_launches"][name]))
+        kernels.append(entry)
+    for name, keys in (("raster_scan", ("raster",)),
+                       ("project_window", ("loop", "drive"))):
+        entry = dict(
+            name=name, route="cuda",
+            source="mrhash_tpu_torch/csrc/scan_raster.cu",
+            replaces="none: the JAX package rasterizes and projects the "
+                     "scan with jnp ops",
+            launches=lrun["scan_launches"][name],
+            multires_launches=mlrun["scan_launches"][name],
+            plain_note="the twin timed eagerly")
+        for key in keys:
+            pre = "" if key in ("raster", "loop") else key + "_"
+            entry.update({pre + k: ks[key][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "window")})
         kernels.append(entry)
     log(f"smoke: {time.perf_counter() - t_main:.1f} s in all")
     from mrhash_tpu_torch import geowrapper

@@ -8,12 +8,12 @@
 // (res 1, a window of a row its siblings share) in place.  Entries own
 // disjoint windows, so no two threads write the same voxel, and the TPU's
 // row packing has no counterpart.  The spherical projection (atan2/asin)
-// runs in torch before the launch (ops/integrate.py::project_window_sph),
-// so the kernel and its plain twin
-// ops/fused_integrate_points.py::fused_integrate_points_rows_ref see the
-// same per-lane (pix, r_vox) and no libdevice/libm ulp difference can move
-// a voxel to another pixel (PORT_NOTES.md P15).  For each voxel, the
-// twin's f32 operations in its order:
+// runs before the launch, in kernel K14 on the card (csrc/scan_raster.cu,
+// bit-equal to its torch twin there; PORT_NOTES.md P15), so the kernel and
+// its plain twin ops/fused_integrate_points.py::fused_integrate_points_rows_ref
+// see the same per-lane (pix, r_vox) and no libdevice/libm ulp difference
+// can move a voxel to another pixel.  For each voxel, the twin's f32
+// operations in its order:
 //   1. the f32 range at the voxel's own pixel of the unpadded min-range
 //      image (no 3-channel bf16 split, no one-hot MXU sampling, no
 //      1/2048 m quantisation, no patch window: P13, P14);

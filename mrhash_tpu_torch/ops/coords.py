@@ -70,6 +70,31 @@ def delinearize_voxel_pos(index, block_size=P.SDF_BLOCK_SIZE):
     return torch.stack([x, y, z], dim=-1).to(torch.int32)
 
 
+def block_voxel_grid(bpos, bres, lane0=None):
+    """Virtual-voxel coords i32[A,512,3] and lane validity bool[A,512] of
+    each block's lattice: 8^3 for res 0, 4^3 at twice the spacing for res 1
+    (integrateDepthMapKernel's scaled delinearization,
+    voxel_data_structures.cu:1114-1118, with the dense res-1 indexing).
+    Without lane0 the lanes are in window layout (lane v = voxel v); with
+    lane0 they address the block's row (a res-1 block's voxels at lanes
+    [lane0, lane0 + 64)), as the reference's row layout."""
+    n = P.TOTAL_SDF_BLOCK_SIZE
+    lanes = torch.arange(n, dtype=torch.int32, device=bpos.device)
+    local = (lanes[None, :] if lane0 is None
+             else lanes[None, :] - lane0.to(torch.int32)[:, None])
+    is_low = (bres == 1)[:, None]
+    nvox = torch.where(is_low, P.TOTAL_LOW_BLOCK_SIZE, n)
+    lane_valid = (local >= 0) & (local < nvox)
+    off8 = delinearize_voxel_pos(torch.clamp(local, 0, n - 1),
+                                 P.SDF_BLOCK_SIZE)
+    off4 = delinearize_voxel_pos(
+        torch.clamp(local, 0, P.TOTAL_LOW_BLOCK_SIZE - 1),
+        P.LOW_BLOCK_SIZE) * 2
+    offs = torch.where(is_low[..., None], off4, off8)
+    return sdf_block_to_virtual_voxel_pos(bpos)[:, None, :] + offs, \
+        lane_valid
+
+
 def virtual_voxel_pos_to_block_index(virtual_voxel_pos,
                                      block_size=P.SDF_BLOCK_SIZE):
     """Local index of a virtual voxel inside its block, dense per

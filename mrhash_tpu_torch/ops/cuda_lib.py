@@ -90,6 +90,13 @@ SIGNATURES = {
     # was_new, nptr, n, staged sdf, sumsq, weight, rgbp, sdf, sumsq,
     # weight, rgbp, stream
     "mrhash_coarsen_scatter": [_vp, _vp, _i64, *[_vp] * 9],
+    "mrhash_raster_scan_aux_words": [],
+    # pts, n, rows, cols, col_scale, min_d, max_d, img, aux, stream
+    "mrhash_raster_scan": [_vp, _i64, _i, _i, _f, _vp, _vp, _vp, _vp, _vp],
+    # bpos, bres, n_entries, rot, trans, min_d, max_d, mapping, vvs, rows,
+    # cols, col_scale, pix, r_vox, stream
+    "mrhash_project_window": [_vp, _vp, _i64, *[_vp] * 5, _f, _i, _i, _f,
+                              _vp, _vp, _vp],
 }
 
 

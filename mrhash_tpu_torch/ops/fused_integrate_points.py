@@ -11,8 +11,9 @@ threads of one voxel, 4 entries per CTA.  Each thread loads the f32
 range at its voxels' precomputed pixels, gates on the truncation band,
 applies the Welford update and writes its voxels back in place where any
 updated; each entry then reduces its flags over its own window.  The
-spherical projection that gives each lane its (pix, r_vox) runs in torch
-before the launch (ops/integrate.py::project_window_sph).
+range image and each lane's (pix, r_vox) come from the launches before it:
+on the card kernels K13 and K14, on the CPU their torch twins
+(ops/scan_raster.py).
 
 Bound on the card: bytes — 16 B read per voxel of the window (pix, r_vox,
 sdf, weight), 4 B read (sumsq) per weighted voxel and 12 B written per

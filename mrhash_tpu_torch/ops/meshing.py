@@ -29,7 +29,7 @@ from mrhash_tpu_torch.core.state import MapConfig, VoxelPool, unpack_rgb
 from mrhash_tpu_torch.ops import coords as X
 from mrhash_tpu_torch.ops import hashtable as H
 from mrhash_tpu_torch.ops import transvoxel as TV
-from mrhash_tpu_torch.ops.integrate import _block_rows, _block_voxel_grid
+from mrhash_tpu_torch.ops.integrate import _block_rows
 
 TRIS_PER_CELL = 5     # the most triangles a regular Transvoxel cell emits
 
@@ -232,7 +232,7 @@ def cell_gate(cfg: MapConfig, table: H.HashTable, pool: VoxelPool,
     vvs = cfg.virtual_voxel_size
     corner = _tables(bpos.device)["corner"]
     _, lane0 = _block_rows(bptr)
-    pi, lane_valid = _block_voxel_grid(bpos, bres, lane0)
+    pi, lane_valid = X.block_voxel_grid(bpos, bres, lane0)
     pf = X.virtual_voxel_pos_to_world(vvs, pi)
     vs = (vvs * (torch.ones_like(bres) << bres).to(torch.float32))[:, None,
                                                                      None]

@@ -1,5 +1,5 @@
 """The port's one device policy (ops/cuda_lib.py::on_card), held at every
-kernel entry K1-K12.
+kernel entry K1-K14.
 
 Each case calls one entry on small CPU operands and holds that it takes
 the plain twin: its result equals the twin's on the same operands, and
@@ -23,6 +23,7 @@ from mrhash_tpu_torch.ops import fused_integrate as FI
 from mrhash_tpu_torch.ops import fused_integrate_points as FIP
 from mrhash_tpu_torch.ops import hashtable as H
 from mrhash_tpu_torch.ops import sample_image as SI
+from mrhash_tpu_torch.ops import scan_raster as SR
 from mrhash_tpu_torch.utils.profiler import COUNTS, SYNCS
 
 CFG = MapConfig(virtual_voxel_size=0.05, sdf_truncation=0.1,
@@ -190,10 +191,30 @@ def _k10_coarsen():
                                                               decide)
 
 
+def _sph_cam():
+    return C.make_camera(10.0, 10.0, COLS / 2, ROWS / 2, ROWS, COLS, 0.1,
+                         5.0, model=C.SPHERICAL)
+
+
+def _k13_raster():
+    return (lambda p: SR.raster_scan(_sph_cam(), p),
+            lambda p: SR.raster_scan_ref(_sph_cam(), p), (_points(),))
+
+
+def _k14_project():
+    bpos, _, res = _window(3)
+    res[1] = 1
+    mapping = SR.raster_scan_ref(_sph_cam(), _points())[1]
+    return (lambda *a: SR.project_window(CFG, _sph_cam(), *a),
+            lambda *a: SR.project_window_ref(CFG, _sph_cam(), *a),
+            (bpos, res, mapping))
+
+
 CASES = {"K1": _k1, "K2": _k2, "K3": _k3, "K4": _k4, "K5": _k5, "K6": _k6,
          "K7_depth": _k7_depth, "K7_points": _k7_points,
          "K7_K8_dedup": _k8_dedup, "K9_insert": _k9_insert,
-         "K10_K12_coarsen": _k10_coarsen}
+         "K10_K12_coarsen": _k10_coarsen, "K13_raster": _k13_raster,
+         "K14_project": _k14_project}
 
 
 def _same(a, b):

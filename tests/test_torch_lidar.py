@@ -43,6 +43,7 @@ from mrhash_tpu_torch.ops import alloc_blocks as AB
 from mrhash_tpu_torch.ops import camera as C
 from mrhash_tpu_torch.ops import fused_integrate_points as FIP
 from mrhash_tpu_torch.ops import integrate as I
+from mrhash_tpu_torch.ops import scan_raster as SR
 from mrhash_tpu_torch.utils.profiler import COUNTS
 
 torch.set_num_threads(1)
@@ -196,12 +197,12 @@ def _pixel_mismatches(ref_window_pos, pts, t):
     ok = np.asarray(inr & (rv >= 0.2) & (rv <= MAX_D))
     want = np.where(ok, np.asarray(row) * COLS + np.asarray(col), -1)
     cam = _port_cam(t)
-    el_lo_p, s_el_p = I.scan_raster_mapping(cam, torch.from_numpy(pts))
+    el_lo_p, s_el_p = SR.scan_raster_mapping(cam, torch.from_numpy(pts))
     n = ref_window_pos.shape[0]
-    pix, _ = I.project_window_sph(MapConfig(**CFG), cam,
-                                  torch.from_numpy(ref_window_pos),
-                                  torch.zeros(n, dtype=torch.int32),
-                                  el_lo_p, s_el_p)
+    pix, _ = SR.project_window_sph(MapConfig(**CFG), cam,
+                                   torch.from_numpy(ref_window_pos),
+                                   torch.zeros(n, dtype=torch.int32),
+                                   el_lo_p, s_el_p)
     return int((pix.numpy() != want).sum())
 
 

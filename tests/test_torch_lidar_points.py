@@ -320,7 +320,7 @@ def _check_spherical_starve():
         pi, valid = JI._block_voxel_grid(jb[0], jb[2])
         pc = JC.world_to_cam(jcam, JX.virtual_voxel_pos_to_world(0.20, pi))
         jrow, jcol, jok = JC.project_point(jcam, pc)
-    pi_p, _ = I._block_voxel_grid(bpos, bres)
+    pi_p, _ = X.block_voxel_grid(bpos, bres)
     row, col, ok = C.project_point(_port_cam(t), C.world_to_cam(
         _port_cam(t), X.virtual_voxel_pos_to_world(0.20, pi_p)))
     v = np.asarray(valid)
@@ -439,7 +439,7 @@ def test_point_centric_slice_and_k2_on_card():
     t, _ = _frames()[2]
     cam = _port_cam(t, cuda)
     _, bpos, bptr, bres = I.compact_active(cfg, st.table)
-    pi, valid = I._block_voxel_grid(bpos, bres)
+    pi, valid = X.block_voxel_grid(bpos, bres)
     pcam = C.world_to_cam(cam, X.virtual_voxel_pos_to_world(0.20, pi))
     row, col, ok = C.project_point(cam, pcam)
     z = C.get_depth(cam, pcam)

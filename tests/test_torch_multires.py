@@ -39,6 +39,7 @@ from mrhash_tpu_torch.geowrapper import GeoWrapper
 from mrhash_tpu_torch.ops import alloc_blocks as AB
 from mrhash_tpu_torch.ops import camera as C
 from mrhash_tpu_torch.ops import coarsen_blocks as CB
+from mrhash_tpu_torch.ops import coords as X
 from mrhash_tpu_torch.ops import fused_integrate as FI
 from mrhash_tpu_torch.ops import fused_integrate_points as FIP
 from mrhash_tpu_torch.ops import hashtable as H
@@ -194,7 +195,7 @@ def test_block_voxel_grid_matches_reference(layout):
     bres = (np.arange(A) % 3 == 0).astype(np.int32)
     lane0 = (rng.integers(0, 8, A) * 64 * bres).astype(np.int32)
     args = (bpos, bres) if layout == "window" else (bpos, bres, lane0)
-    pi, lv = I._block_voxel_grid(*(torch.from_numpy(a) for a in args))
+    pi, lv = X.block_voxel_grid(*(torch.from_numpy(a) for a in args))
     jpi, jlv = JI._block_voxel_grid(*(jnp.asarray(a) for a in args))
     np.testing.assert_array_equal(lv.numpy(), np.asarray(jlv))
     m = lv.numpy()
@@ -470,8 +471,6 @@ def test_coarsen_downsample_preserves_observations():
     mean.  Without the merge the coarse voxel restarts at weight <= 2."""
     import copy
     import dataclasses
-
-    from mrhash_tpu_torch.ops import coords as X
 
     rows, cols = 48, 64
     cam = C.make_camera(40.0, 40.0, cols / 2 - 0.5, rows / 2 - 0.5, rows,
