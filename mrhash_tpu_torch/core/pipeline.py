@@ -25,7 +25,7 @@ from mrhash_tpu_torch.utils.profiler import (COUNTS, SYNCS, host_bool,
                                              host_list, since, stage)
 
 
-def _coarsen(cfg: MapConfig, state: MapState, window, decide):
+def _coarsen(cfg: MapConfig, state: MapState, window, decide, counts=None):
     """The multi-resolution step after the integrate: when the frame is
     not the first and some res-0 entry decided to coarsen (`decide`, from
     K1's or K3's flags or from the pool), coarsen_blocks.coarsen.  Returns
@@ -36,12 +36,14 @@ def _coarsen(cfg: MapConfig, state: MapState, window, decide):
     coarse block's, so starvation (starve_voxels' skip), GC (_kept) and
     the stats' res-0 count skip them, as the reference's pre-coarsen
     window minus the freed entries; this frame's coarse blocks starve and
-    collect from the next frame on."""
+    collect from the next frame on.  `counts`, a dict, gets "unserved",
+    the decisions max_coarsen_per_frame left for a later frame, where it
+    ran (CB.coarsen)."""
     if cfg.sdf_var_threshold <= 0.0 or state.frame == 0 or not host_bool(
             decide.any()):
         return None, None
     new_slots, new_mask, freed = CB.coarsen(
-        cfg, state.table, state.pool, *window[:2], decide)
+        cfg, state.table, state.pool, *window[:2], decide, counts)
     return (new_slots, new_mask), freed
 
 
@@ -75,7 +77,8 @@ def integrate_rgbd(cfg: MapConfig, state: MapState, cam: C.Camera,
             keys, valid = AB.alloc_candidates_depth(
                 cfg, cam, pc_depth, num_steps, frame=state.frame,
                 scratch=scratch)
-        alloc = I.alloc_blocks(cfg, table, keys, valid, state.frame, scratch)
+        alloc = I.alloc_blocks(cfg, table, keys, valid, state.frame, scratch,
+                               state.refill)
 
     # --- compaction + fused integration -------------------------------------
     with stage("rgbd.integrate"):
@@ -89,7 +92,9 @@ def integrate_rgbd(cfg: MapConfig, state: MapState, cam: C.Camera,
     # --- variance-adaptive coarsening ---------------------------------------
     with stage("rgbd.coarsen"):
         c0 = COUNTS[SYNCS]
-        coarse, freed = _coarsen(cfg, state, window, aux["coarsen_decide"])
+        unserved = dict(unserved=0)
+        coarse, freed = _coarsen(cfg, state, window, aux["coarsen_decide"],
+                                 unserved)
         if coarse is not None:
             I.reintegrate_blocks(cfg, table, pool, cam, pc_depth, rgb_img,
                                  *coarse)
@@ -98,7 +103,7 @@ def integrate_rgbd(cfg: MapConfig, state: MapState, cam: C.Camera,
     # --- starvation + garbage collection ------------------------------------
     slots, bpos, bptr, bres = window
     n = cfg.n_frames_invalidate_voxels
-    gc_freed = 0
+    gc_freed = gc_unserved = 0
     if n > 0:
         with stage("rgbd.starve_gc"):
             if state.frame > 0 and state.frame % n == 0:
@@ -106,14 +111,15 @@ def integrate_rgbd(cfg: MapConfig, state: MapState, cam: C.Camera,
                                 skip=freed)
             # GC reads the kernel's flags from BEFORE the starve (reference
             # deviation D12)
-            gc_freed = I.garbage_collect_sweep(
+            gc_freed, gc_unserved = I.garbage_collect_sweep(
                 cfg, table, pool, slots, _kept(aux["gc_decision"], freed))
 
     state.frame += 1
     with stage("rgbd.stats"):
         return state, _stats(state, count, bres, alloc, coarse, gc_freed,
                              syncs0, window_cut=cut, freed=freed,
-                             coarsen_syncs=coarsen_syncs)
+                             coarsen_syncs=coarsen_syncs,
+                             unserved=(unserved["unserved"], gc_unserved))
 
 
 def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
@@ -160,7 +166,8 @@ def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
         keys, valid = AB.alloc_candidates_points(
             cfg, cam, points, cfg.dda_steps(mdist), normals, scratch)
     with stage("points.alloc_blocks"):
-        alloc = I.alloc_blocks(cfg, table, keys, valid, state.frame, scratch)
+        alloc = I.alloc_blocks(cfg, table, keys, valid, state.frame, scratch,
+                               state.refill)
 
     # no frustum filter: the scan sees all around (the reference's
     # compact_active without a camera), as far as the sensor's reach
@@ -189,12 +196,13 @@ def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
     carried = None
     with stage("points.coarsen"):
         c0 = COUNTS[SYNCS]
-        coarse, freed = _coarsen(cfg, state, window, decide)
+        unserved = dict(unserved=0)
+        coarse, freed = _coarsen(cfg, state, window, decide, unserved)
         if bound is not None and cfg.sdf_var_threshold > 0.0:
             carried = _carry(cfg, state, cam, bound, window, decide, freed)
         coarsen_syncs = since(c0)
     n = cfg.n_frames_invalidate_voxels
-    gc_freed = 0
+    gc_freed = gc_unserved = 0
     if n > 0:
         slots, bpos, bptr, bres = window
         starve = state.frame > 0 and state.frame % n == 0
@@ -205,14 +213,15 @@ def integrate_points(cfg: MapConfig, state: MapState, cam: C.Camera,
         with stage("points.gc"):
             if gc_flags is None or starve:
                 gc_flags = I.gc_decide(cfg, cam, pool, bptr, bres)
-            gc_freed = I.garbage_collect_sweep(cfg, table, pool, slots,
-                                               _kept(gc_flags, freed))
+            gc_freed, gc_unserved = I.garbage_collect_sweep(
+                cfg, table, pool, slots, _kept(gc_flags, freed))
 
     state.frame += 1
     with stage("points.stats"):
         stats = _stats(state, count, window[3], alloc, coarse, gc_freed,
                        syncs0, window_cut=cut, carried=carried, freed=freed,
-                       coarsen_syncs=coarsen_syncs)
+                       coarsen_syncs=coarsen_syncs,
+                       unserved=(unserved["unserved"], gc_unserved))
     stats.update(walk)
     return state, stats
 
@@ -258,7 +267,7 @@ def _carry(cfg: MapConfig, state: MapState, cam: C.Camera, bound, window,
 def _stats(state: MapState, count: int, bres, alloc=(0, 0), coarse=None,
            gc_freed: int = 0, syncs0: int | None = None,
            window_cut: int = 0, carried=None, freed=None,
-           coarsen_syncs: int = 0):
+           coarsen_syncs: int = 0, unserved=(0, 0)):
     """The reference's stats keys, as Python ints (one device sync);
     res0_blocks counts the res-0 entries of the window that stayed after
     coarsening (those `freed` does not mark).  Then the frame's counters, host
@@ -269,6 +278,9 @@ def _stats(state: MapState, count: int, bres, alloc=(0, 0), coarse=None,
     occupied entries the window's cap (max_active_blocks) left out;
     coarsen_carried, the decisions coarsening served from beyond the sensor's
     reach (`carried`, a device count read in this sync, or None);
+    coarsen_unserved and gc_unserved, the decisions the caps
+    (max_coarsen_per_frame, max_gc_free_per_frame) left for a later frame
+    (`unserved`, host ints from the host reads coarsening and GC take);
     coarsen_syncs, the sync sites passed inside the coarsening step (its stage,
     the RGB-D reintegration included); host_syncs, the sync sites passed since
     the reading syncs0 of COUNTS (utils/profiler.py), this one's included (this
@@ -288,4 +300,5 @@ def _stats(state: MapState, count: int, bres, alloc=(0, 0), coarse=None,
                 coarsened=0 if coarse is None else int(coarse[0].shape[0]),
                 gc_freed=gc_freed, window_cut=window_cut,
                 coarsen_carried=far[0] if far else 0,
+                coarsen_unserved=unserved[0], gc_unserved=unserved[1],
                 coarsen_syncs=coarsen_syncs, host_syncs=since(syncs0))

@@ -113,6 +113,10 @@ class MapState:
     # again on the next LiDAR scan even beyond the sensor's reach
     # (core/pipeline.py::integrate_points)
     coarsen_pending: torch.Tensor = None
+    # () -> bool, or None: frees high blocks when a frame's allocation has
+    # run the high heap dry, and tells whether it freed any
+    # (ops/integrate.py::alloc_blocks; GeoWrapper streams far blocks out)
+    refill: object = None
 
 
 def coarsen_pending(state: MapState):

@@ -12,8 +12,11 @@ CUDA original, streamer.{cuh,cu,cpp} and serializer.h):
   worker thread while later frames integrate;
 - stream-in reloads every host chunk whose centre lies within
   |radius - chunk_radius| of the camera (streamer.cuh:346-352) in
-  staging-sized batches (streamer.cpp:357-378); keys already resident are
-  skipped, and blocks that find no slot go back into the grid;
+  staging-sized batches (streamer.cpp:357-378), uploading a res-1
+  block's 64 voxels and not its host row of 512 (`stream_in_blocks`, which
+  also takes the chunks a caller popped); blocks that find no slot, and
+  blocks whose key is already resident (an error, counted), go back into
+  the grid;
 - streamAllOut evicts everything (streamer.cpp:249-281);
 - `serialize_grid` / `deserialize_grid` write and read the reference's npz
   checkpoint, so a grid written by either package loads in the other.
@@ -36,13 +39,13 @@ import numpy as np
 import torch
 
 from mrhash_tpu_torch import params as P
-from mrhash_tpu_torch.core.state import (MapConfig, MapState, VoxelPool,
-                                         clear_blocks, put_windows,
+from mrhash_tpu_torch.core.state import (LANES, MapConfig, MapState,
+                                         VoxelPool, clear_blocks, put_windows,
                                          window_voxels)
 from mrhash_tpu_torch.ops import alloc_blocks as AB
 from mrhash_tpu_torch.ops import coords as X
 from mrhash_tpu_torch.ops import hashtable as H
-from mrhash_tpu_torch.utils.profiler import stage
+from mrhash_tpu_torch.utils.profiler import nonzero, pick, stage
 
 # the chunk grid's names of the pool fields (VoxelPool.FIELDS order)
 HOST_FIELDS = ("sdf", "ssq", "w", "rgb")
@@ -119,6 +122,52 @@ def insert_blocks(cfg: MapConfig, table: H.HashTable, pool: VoxelPool, pos,
     return info["present"], info["slot"], new
 
 
+def repack_low(state: MapState):
+    """Pack the res-1 blocks into as few pool rows as hold them, in place,
+    and hand every row this empties back to the high heap.  An evicted or
+    collected res-1 block frees a low id, not a row, so a multi-res map
+    that streams fragments its low rows until the high heap runs dry
+    while the low heap holds room (PORT_NOTES.md P72).  The rows kept are
+    the low rows with the most live blocks; each live block of another
+    row moves into a free id of a kept row (its 64 voxels copied, its old
+    window cleared, its entry's ptr updated).  Returns (rows freed,
+    blocks moved)."""
+    table, pool = state.table, state.pool
+    if table.low_count == 0:
+        return 0, 0
+    b8, lanes = P.OCTREE_BRANCHING_FACTOR, P.TOTAL_LOW_BLOCK_SIZE
+    live_slots = nonzero((table.ptr != H.FREE) & (table.res == 1))
+    live = table.ptr[live_slots].to(torch.int64) // lanes
+    free = table.heap_low[:table.low_count].to(torch.int64)
+    per_row = torch.bincount(live // b8, minlength=table.num_blocks)
+    low_row = (per_row > 0).index_fill_(0, free // b8, True)
+    k = -(-live.shape[0] // b8)
+    order = torch.sort(torch.where(low_row, per_row, -1), descending=True,
+                       stable=True).indices
+    kept = torch.zeros_like(low_row).index_fill_(0, order[:k], True)
+    kept &= low_row
+    move = ~kept[live // b8]
+    src_slots, src = pick(live_slots, move), pick(live, move)
+    room = pick(free, kept[free // b8])
+    m = src.shape[0]
+    dst = room[:m]
+    if m:
+        off = torch.arange(lanes, device=src.device)
+        s_idx = (src[:, None] * lanes + off).reshape(-1)
+        d_idx = (dst[:, None] * lanes + off).reshape(-1)
+        for f in VoxelPool.FIELDS:
+            v = getattr(pool, f).view(-1)
+            v[d_idx] = v[s_idx]
+            v.index_fill_(0, s_idx, 0)
+        table.ptr[src_slots] = (dst * lanes).to(table.ptr.dtype)
+    rest = room[m:]
+    table.heap_low[:rest.shape[0]] = rest.to(table.heap_low.dtype)
+    table.low_count = int(rest.shape[0])
+    back = nonzero(low_row & ~kept)
+    table.high_count = H._heap_push(table.heap_high, table.high_count, back)
+    return int(back.shape[0]), m
+
+
 def block_world(cfg: MapConfig, pos):
     """World position (float64) of each block's corner, for the chunk
     assignment."""
@@ -128,6 +177,60 @@ def block_world(cfg: MapConfig, pos):
 # ---------------------------------------------------------------------------
 # host chunk grid
 # ---------------------------------------------------------------------------
+
+def _concat(groups):
+    """Chunks' arrays concatenated field by field (None for no chunk)."""
+    if not groups:
+        return None
+    return {k: np.concatenate([g[k] for g in groups]) for k in groups[0]}
+
+
+class _Popped:
+    """Blocks popped from the grid for stream-in, held compact: every
+    block's first 64 lanes, and lanes 64-511 of the res-0 blocks alone (a
+    res-1 block's lanes past its 64 voxels are zeros in the host layout),
+    so a multi-res map's stream-in copies and uploads about an eighth of
+    the host layout's bytes."""
+
+    def __init__(self, groups):
+        low = P.TOTAL_LOW_BLOCK_SIZE
+        self.pos = np.concatenate([g["pos"] for g in groups])
+        self.res = np.concatenate([g["res"] for g in groups])
+        self.fine = self.res == 0
+        self.fine_row = np.cumsum(self.fine) - 1   # a res-0 block's tail row
+        self.head = {f: np.concatenate([g[f][:, :low] for g in groups])
+                     for f in HOST_FIELDS}
+        self.tail = {f: np.concatenate([g[f][g["res"] == 0, low:]
+                                        for g in groups])
+                     for f in HOST_FIELDS}
+
+    def __len__(self):
+        return self.pos.shape[0]
+
+    def host(self, rows):
+        """The rows' (pos, res, sdf, ssq, w, rgb) in the host layout."""
+        return (self.pos[rows], self.res[rows]) + tuple(
+            self._full(f, rows, np.zeros, lambda a: a) for f in HOST_FIELDS)
+
+    def device(self, rows, dev):
+        """The rows' (pos, res, sdf, ssq, w, rgb) as tensors on `dev`, the
+        host layout's, uploaded compact."""
+        up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        zeros = lambda shape, dtype: torch.zeros(
+            shape, dtype=getattr(torch, np.dtype(dtype).name), device=dev)
+        return (up(self.pos[rows]), up(self.res[rows])) + tuple(
+            self._full(f, rows, zeros, up) for f in HOST_FIELDS)
+
+    def _full(self, f, rows, zeros, up):
+        low = P.TOTAL_LOW_BLOCK_SIZE
+        head = self.head[f]
+        out = zeros((rows.shape[0], LANES), head.dtype)
+        out[:, :low] = up(head[rows])
+        k = np.nonzero(self.fine[rows])[0]
+        if k.size:
+            out[up(k), low:] = up(self.tail[f][self.fine_row[rows[k]]])
+        return out
+
 
 class ChunkGrid:
     """Host-RAM chunk map (streamer.cuh:369-384): chunk coords -> SoA numpy
@@ -176,38 +279,41 @@ class ChunkGrid:
                 old = self.chunks[key]
                 group = {k: np.concatenate([old[k], group[k]]) for k in group}
                 # a freshly evicted block supersedes a stale RAM copy of
-                # the same key (keep the newest)
-                _, last = np.unique(group["pos"][::-1], axis=0,
-                                    return_index=True)
-                keep = group["pos"].shape[0] - 1 - np.sort(last)[::-1]
-                keep = np.sort(keep)
-                group = {k: v[keep] for k, v in group.items()}
+                # the same key (keep the newest); the keys compared as 1-d
+                # codes (|coordinate| < 2^20), and the arrays taken again
+                # only where a key repeats
+                p = group["pos"].astype(np.int64) + (1 << 20)
+                codes = (p[:, 0] << 42) | (p[:, 1] << 21) | p[:, 2]
+                _, last = np.unique(codes[::-1], return_index=True)
+                if last.size < codes.size:
+                    keep = np.sort(codes.size - 1 - last)
+                    group = {k: v[keep] for k, v in group.items()}
             self.chunks[key] = group
 
-    def pop_chunks_in_sphere(self, center, radius):
+    def pop_groups_in_sphere(self, center, radius):
         """isChunkInSphere selection (streamer.cuh:346-352): remove and
         return the blocks of every chunk whose centre lies within
-        |radius - chunk_radius| of `center` (None if there is none)."""
+        |radius - chunk_radius| of `center`, as the chunks' own arrays (a
+        list, empty if there is none); a host test over the grid's keys."""
         with self._lock:
-            keys = [key for key in self.chunks
-                    if np.linalg.norm(self.chunk_to_world(key)
-                                      - np.asarray(center))
-                    <= abs(radius - self.chunk_radius)]
-            if not keys:
-                return None
-            groups = [self.chunks.pop(k) for k in keys]
-            return {k: np.concatenate([g[k] for g in groups])
-                    for k in groups[0]}
+            if not self.chunks:
+                return []
+            keys = list(self.chunks)
+            d = self.chunk_to_world(keys) - np.asarray(center)
+            near = np.linalg.norm(d, axis=1) <= abs(radius - self.chunk_radius)
+            return [self.chunks.pop(k) for k, n in zip(keys, near) if n]
+
+    def pop_chunks_in_sphere(self, center, radius):
+        """pop_groups_in_sphere's blocks, concatenated (None if there is
+        none)."""
+        return _concat(self.pop_groups_in_sphere(center, radius))
 
     def peek_chunks(self, keys):
         """Read-only view of the given chunks' blocks, concatenated (None if
         no key is present); the grid keeps them."""
         with self._lock:
-            groups = [self.chunks[k] for k in keys if k in self.chunks]
-            if not groups:
-                return None
-            return {k: np.concatenate([g[k] for g in groups])
-                    for k in groups[0]}
+            return _concat([self.chunks[k] for k in keys
+                            if k in self.chunks])
 
     def compute_bounds(self):
         """streamer.cuh:358-384: the smallest and largest chunk coords."""
@@ -283,12 +389,15 @@ class Streamer:
         self.grid = ChunkGrid(np.asarray(cfg.voxel_extents, np.float32))
         self._worker = None
         self._job = None
-        # stream-out events, oldest first: blocks, passes and ms per phase
-        # (plan and ingest on the host clock; gather + clear and the copy
-        # on the card's, CUDA events); an asynchronous event's d2h and
-        # ingest figures land when its job completes
+        self._job_stats = None
+        # stream-out events, oldest first: blocks, their voxels, passes and
+        # ms per phase (plan and ingest on the host clock; gather + clear
+        # and the copy on the card's, CUDA events); an asynchronous event's
+        # d2h and ingest figures land when its job completes
         self.out_events: list[dict] = []
         self.in_events: list[dict] = []
+        # the asynchronous events whose job a join completed, oldest first
+        self.joined: list[dict] = []
         self.filled_slots = None      # the last stream_in's slots
 
     # -- the stream-out worker ----------------------------------------------
@@ -298,10 +407,16 @@ class Streamer:
         job, self._job = self._job, None
         if job is not None:
             job.result()
+            self.joined.append(self._job_stats)
 
     def busy(self) -> bool:
         """True while an asynchronous stream-out job is in flight."""
         return self._job is not None and not self._job.done()
+
+    def holds(self) -> bool:
+        """True while the host grid holds a chunk or a stream-out job has
+        not been joined: a host read, no device one."""
+        return bool(self.grid.chunks) or self._job is not None
 
     def close(self):
         """Join the job in flight (re-raising its error) and shut the
@@ -343,17 +458,31 @@ class Streamer:
         the copy's completion, the decode and the ingest run on the worker
         thread, and the next stream, snapshot, checkpoint or mesh joins it.
         stream_in needs no join: this event's evictions lie beyond `radius`
-        and stream_in pops within it."""
+        and stream_in pops within it.  The whole of it, the join
+        included, is the range stream.out."""
+        with stage("stream.out"):
+            return self._stream_out_ranged(state, cam_pos, radius, all_out,
+                                           budget, asynchronous)
+
+    def _stream_out_ranged(self, state: MapState, cam_pos, radius, all_out,
+                           budget, asynchronous) -> MapState:
         self.join()
         t0 = time.perf_counter()
-        # stream.* ranges: chip_profile.py --walk reads their host and
-        # device times
+        table = state.table
+        free0 = table.high_count, table.low_count
+        # stream.* ranges: the benchmark's streaming readers and
+        # chip_profile.py --walk read their host and device times
         with stage("stream.plan"):
-            pos, ptr, res = plan_evictions(self.cfg, state.table, cam_pos,
+            pos, ptr, res = plan_evictions(self.cfg, table, cam_pos,
                                            radius, all_out, budget)
         n = pos.shape[0]
-        stats = dict(blocks=n, passes=0, plan_ms=(time.perf_counter() - t0)
-                     * 1e3, gather_ms=0.0, d2h_ms=0.0, ingest_ms=0.0)
+        # the freed entries went back to their heaps (host counts): a res-0
+        # block's 512 voxels to the high heap, a res-1 block's 64 to the low
+        n0, n1 = (table.high_count - free0[0], table.low_count - free0[1])
+        stats = dict(blocks=n, voxels=n0 * P.TOTAL_SDF_BLOCK_SIZE
+                     + n1 * P.TOTAL_LOW_BLOCK_SIZE, passes=0,
+                     plan_ms=(time.perf_counter() - t0) * 1e3, gather_ms=0.0,
+                     d2h_ms=0.0, ingest_ms=0.0)
         self.out_events.append(stats)
         if n == 0:
             return state
@@ -382,6 +511,7 @@ class Streamer:
                 self._worker = concurrent.futures.ThreadPoolExecutor(1)
             self._job = self._worker.submit(self._ingest, passes, stats,
                                             self.grid)
+            self._job_stats = stats
         else:
             self._ingest(passes, stats, self.grid)
         return state
@@ -417,44 +547,70 @@ class Streamer:
     def stream_in(self, state: MapState, center, radius) -> MapState:
         """streamInToGPU (streamer.cpp:289-378): pop the chunks within
         |radius - chunk_radius| of `center` and insert their blocks in
-        staging-sized batches.  Blocks the device cannot place (a full
-        probe window or a dry heap) go back into the grid instead of being
-        lost (the reference only warns, streamer.cu:276-277).  The table
-        slots it filled are left in `filled_slots` (i64)."""
+        stream_in_blocks."""
         with stage("stream.in"):
-            return self._stream_in(state, center, radius)
+            groups = self.grid.pop_groups_in_sphere(np.asarray(center),
+                                                    radius)
+        return self.stream_in_blocks(state, groups)
 
-    def _stream_in(self, state: MapState, center, radius) -> MapState:
-        blocks = self.grid.pop_chunks_in_sphere(np.asarray(center), radius)
-        stats = dict(popped=0, inserted=0, kept=0)
-        self.in_events.append(stats)
-        dev = state.table.pos.device
-        filled = [torch.zeros(0, dtype=torch.int64, device=dev)]
-        self.filled_slots = filled[0]
-        if blocks is None:
+    def stream_in_blocks(self, state: MapState, groups) -> MapState:
+        """Insert the chunks popped from the grid (pop_groups_in_sphere's
+        list) in staging-sized batches (streamer.cpp:357-378), uploaded
+        compact (_Popped).  Blocks the device cannot place (a full probe
+        window or a dry heap) go back into the grid instead of being lost
+        (the reference only warns, streamer.cu:276-277); one that lost its
+        slot to another of its batch tries again first.  A block whose key
+        is already resident is an error, counted as `clashed` in the event
+        and kept in the grid, never dropped (the reference skips it,
+        losing its history; PORT_NOTES.md P72).  The table slots it filled
+        are left in `filled_slots` (i64)."""
+        with stage("stream.in"):
+            stats = dict(popped=0, inserted=0, kept=0, clashed=0)
+            self.in_events.append(stats)
+            table = state.table
+            dev = table.pos.device
+            filled = [torch.zeros(0, dtype=torch.int64, device=dev)]
+            self.filled_slots = filled[0]
+            if not groups:
+                return state
+            blocks = _Popped(groups)
+            total = len(blocks)
+            stats["popped"] = total
+            for off in range(0, total, self.staging):
+                rows = np.arange(off, min(off + self.staging, total))
+                # a block that lost its slot to another of its batch tries
+                # again, until a round places none (as insert_readonly's)
+                while rows.size:
+                    # the high blocks the round's res-1 blocks need beyond the
+                    # low heap, split first (insert_blocks alone splits at most
+                    # cfg.low_split_chunk)
+                    short = (int((blocks.res[rows] == 1).sum())
+                             - table.low_count)
+                    if short > 0:
+                        H.split_high_blocks(
+                            table, -(-short // P.OCTREE_BRANCHING_FACTOR))
+                    present, slot, new = insert_blocks(
+                        self.cfg, table, state.pool, *blocks.device(rows, dev))
+                    present, new_h = present.cpu().numpy(), new.cpu().numpy()
+                    stats["inserted"] += int(new_h.sum())
+                    filled.append(slot[new])
+                    clashed, lost = rows[present & ~new_h], rows[~present]
+                    done = lost.size == rows.size
+                    back = np.concatenate([clashed,
+                                           lost if done else lost[:0]])
+                    rows = lost[:0] if done else lost
+                    if not back.size:
+                        continue
+                    host = blocks.host(back)
+                    self.grid.add_blocks(block_world(self.cfg, host[0]), *host)
+                    stats["clashed"] += int(clashed.size)
+                    stats["kept"] += int(back.size - clashed.size)
+                    print(f"Streamer | stream_in: {back.size - clashed.size} "
+                          "blocks did not fit the device hash, "
+                          f"{clashed.size} found their key resident; kept in "
+                          "RAM")
+            self.filled_slots = torch.cat(filled)
             return state
-        total = blocks["pos"].shape[0]
-        stats["popped"] = total
-        for off in range(0, total, self.staging):
-            sl = slice(off, min(off + self.staging, total))
-            present, slot, new = insert_blocks(
-                self.cfg, state.table, state.pool,
-                *(torch.from_numpy(np.ascontiguousarray(blocks[k][sl]))
-                  .to(dev) for k in ("pos", "res", *HOST_FIELDS)))
-            failed = ~present.cpu().numpy()
-            stats["inserted"] += int(new.sum())
-            filled.append(slot[new])
-            if failed.any():
-                idx = np.nonzero(failed)[0] + sl.start
-                pos_f = blocks["pos"][idx]
-                self.grid.add_blocks(block_world(self.cfg, pos_f), pos_f,
-                                     *(blocks[k][idx] for k in
-                                       ("res", *HOST_FIELDS)))
-                stats["kept"] += int(idx.size)
-                print(f"Streamer | stream_in: {idx.size} blocks did not fit "
-                      "the device hash; kept in RAM")
-        self.filled_slots = torch.cat(filled)
-        return state
 
     def insert_readonly(self, state: MapState, blocks, owned):
         """Insert host blocks into the device map in staging-sized batches

@@ -19,9 +19,10 @@
 //       bit (table, heaps, counts, the served keys in window order);
 //   K11 + K12 equal _clear_blocks and _downsample_into_coarse in weight
 //       and colour bit for bit (integer weights make every sum exact and
-//       the division rounds correctly); sdf and sumsq sum the 8 children
-//       in (dz, dy, dx) order, another order than torch's reduction, so
-//       they differ by rounding (PORT_NOTES.md P71).
+//       the division rounds correctly); sdf and sumsq sum the children in
+//       the order of torch's reductions on a card, and divide by the half
+//       voxel as a product with its reciprocal, as torch does there, so
+//       they equal the twin run on a card (PORT_NOTES.md P71).
 //
 // Design:
 //   - K10 is one CTA of 1024 threads, since its steps are ordered over
@@ -134,6 +135,7 @@ __global__ void __launch_bounds__(kScanCta) coarsen_select_kernel(Select a) {
     }
     n += total;
   }
+  const int64_t decided = n;
   if (n > a.cap) n = a.cap;
   __syncthreads();
   // 2. the occupied served entries' block ids on their heaps, in order
@@ -175,7 +177,7 @@ __global__ void __launch_bounds__(kScanCta) coarsen_select_kernel(Select a) {
     a.stats[0] = (int32_t)n;
     a.stats[1] = (int32_t)high;
     a.stats[2] = (int32_t)low;
-    a.stats[3] = 0;
+    a.stats[3] = (int32_t)(decided - n);   // decisions left unserved
   }
 }
 
@@ -185,6 +187,18 @@ struct Pool {
   int32_t* weight;
   int32_t* rgbp;
 };
+
+// torch's sum on a card of 8 (4) values v[i] over dims of size 2 whose
+// fastest is summed, i counting the fastest dim first: one value a
+// thread, then shuffles down by 4, 2, 1 (2, 1), so the slowest dim pairs
+// first (measured on an H100, torch 2.11)
+__device__ __forceinline__ float tree4(float a, float b, float c, float d) {
+  return (a + c) + (b + d);
+}
+
+__device__ __forceinline__ float tree8(const float* v) {
+  return tree4(v[0] + v[4], v[1] + v[5], v[2] + v[6], v[3] + v[7]);
+}
 
 // K11: one CTA per served block: its fine row into the staging buffer's
 // 64 coarse voxels (integrate.py::_downsample_into_coarse) when `merge`,
@@ -216,29 +230,42 @@ __global__ void __launch_bounds__(kHighLanes) coarsen_merge_kernel(
   }
   if (!merge || t >= kLowLanes) return;
   // coarse lane t = cz*16 + cy*4 + cx; fine lane z*64 + y*8 + x with
-  // (z, y, x) = 2 (cz, cy, cx) + (dz, dy, dx)
+  // (z, y, x) = 2 (cz, cy, cx) + (dz, dy, dx); child k = dz*4 + dy*2 + dx
   const int cz = t >> 4, cy = (t >> 2) & 3, cx = t & 3;
   int lane[8];
-  float w_c = 0.0f, s_c = 0.0f, c_r = 0.0f, c_g = 0.0f, c_b = 0.0f;
-  float w_ax[3][2] = {}, s_ax[3][2] = {};   // per child axis, d = 0 / 1
+  float w[8], ws[8];
+  float w_c = 0.0f, c_r = 0.0f, c_g = 0.0f, c_b = 0.0f;
+  float w_ax[3][2] = {};                 // per child axis, d = 0 / 1
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const int dz = k >> 2, dy = (k >> 1) & 1, dx = k & 1;
     const int l = (2 * cz + dz) * 64 + (2 * cy + dy) * 8 + 2 * cx + dx;
     lane[k] = l;
-    const float w = wf[l], ws = w * sd[l];
+    w[k] = wf[l];
+    ws[k] = w[k] * sd[l];
     const int32_t c = col[l];
-    w_c += w;
-    s_c += ws;
-    c_r += w * (float)(c & 255);
-    c_g += w * (float)((c >> 8) & 255);
-    c_b += w * (float)((c >> 16) & 255);
-    w_ax[0][dz] += w;
-    s_ax[0][dz] += ws;
-    w_ax[1][dy] += w;
-    s_ax[1][dy] += ws;
-    w_ax[2][dx] += w;
-    s_ax[2][dx] += ws;
+    w_c += w[k];
+    c_r += w[k] * (float)(c & 255);
+    c_g += w[k] * (float)((c >> 8) & 255);
+    c_b += w[k] * (float)((c >> 16) & 255);
+    w_ax[0][dz] += w[k];
+    w_ax[1][dy] += w[k];
+    w_ax[2][dx] += w[k];
+  }
+  // the sdf sums in the order of the twin's torch reductions on a card,
+  // so that sdf equals the twin's bit for bit (weights and colours are
+  // exact in any order): the sum over the 8 children pairs dz, then dy,
+  // then dx (tree8); a dz or dy half's sum over 4 children pairs the
+  // other slow dim, then dx (tree4); a dx half's adds in turn, dy first
+  const float s_c = tree8(ws);
+  float s_ax[3][2];
+#pragma unroll
+  for (int d = 0; d < 2; ++d) {
+    s_ax[0][d] = tree4(ws[4 * d], ws[4 * d + 1], ws[4 * d + 2],
+                       ws[4 * d + 3]);
+    s_ax[1][d] = tree4(ws[2 * d], ws[2 * d + 1], ws[4 + 2 * d],
+                       ws[5 + 2 * d]);
+    s_ax[2][d] = ((ws[d] + ws[2 + d]) + ws[4 + d]) + ws[6 + d];
   }
   const float w_safe = w_c < 1.0f ? 1.0f : w_c;
   float m = s_c / w_safe;
@@ -256,14 +283,17 @@ __global__ void __launch_bounds__(kHighLanes) coarsen_merge_kernel(
   }
   m = m - corr;
   // Chan's combination of the children's sumsq under the half-voxel
-  // normalisation
-  float ssq_c = 0.0f;
+  // normalisation; torch divides a card tensor by a number as a product
+  // with its reciprocal
+  const float inv_half = 1.0f / half_voxel;
+  float q[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const int l = lane[k];
-    const float dev = (sd[l] - m) / half_voxel;
-    ssq_c += ssq[l] + wf[l] * dev * dev;
+    const float dev = (sd[l] - m) * inv_half;
+    q[k] = ssq[l] + wf[l] * dev * dev;
   }
+  const float ssq_c = tree8(q);
   const bool occ = w_c > 0.0f;
   const int32_t r = occ ? (int32_t)floorf(c_r / w_safe + 0.5f) : 0;
   const int32_t g = occ ? (int32_t)floorf(c_g / w_safe + 0.5f) : 0;
@@ -302,8 +332,9 @@ Pool pool_of(void* sdf, void* sumsq, void* weight, void* rgbp) {
 }  // namespace
 
 // K10: select and free the decided entries, push their ids, split where
-// the low heap is short; stats[0..2] get the served count and the new high
-// and low heap counts.  Returns cudaGetLastError().
+// the low heap is short; stats[0..3] get the served count, the new high
+// and low heap counts, and the decisions the cap left unserved.  Returns
+// cudaGetLastError().
 extern "C" int mrhash_coarsen_select(
     const void* decide, const void* slots, const void* bpos,
     int64_t n_window, int64_t cap, void* pos, void* ptr, void* res,

@@ -12,10 +12,12 @@ frame, then GSFinalOpt / GSSavePointCloud; with viewer_active, a mesh of
 the device-resident map refreshed in the background after each frame
 (getViewerMesh).  Every frame runs eagerly on `device` ("cuda" by
 default).  When the free high heap falls to the stream watermark,
-compute() first streams the farthest blocks to the host chunk grid and
-reloads the host chunks near the camera (core/streaming.py), so a scene
-larger than the device pool keeps integrating.  extractMesh runs the host
-sweep (native/), or with MRHASH_HOST_MESH=0 the device sweep
+compute() first streams the farthest blocks to the host chunk grid
+(core/streaming.py), and before every frame that enters another chunk it
+brings back the host chunks near the camera, so a scene larger than the
+device pool keeps integrating, and a route that returns over streamed
+ground finds it on the card before the frame maps it.  extractMesh runs
+the host sweep (native/), or with MRHASH_HOST_MESH=0 the device sweep
 (ops/meshing.py), as the reference selects them.  A LiDAR scan takes
 kernel K3's projective update, or with projective_sdf=False the
 point-centric walk with the point-to-plane SDF over the cloud's normals;
@@ -43,7 +45,7 @@ from mrhash_tpu_torch.core import mesh_post, pipeline
 from mrhash_tpu_torch.core.state import (MapConfig, MapState, VoxelPool,
                                          make_state)
 from mrhash_tpu_torch.core.streaming import (ChunkGrid, Streamer,
-                                             gather_blocks)
+                                             gather_blocks, repack_low)
 from mrhash_tpu_torch.gs.container import GaussianContainer
 from mrhash_tpu_torch.ops import camera as C
 from mrhash_tpu_torch.ops import hashtable as H
@@ -159,6 +161,7 @@ class GeoWrapper:
             max_alloc_per_frame=int(max_alloc_per_frame))
         self.state = make_state(self.cfg.num_blocks,
                                 self.cfg.num_buckets or None, self.device)
+        self.state.refill = self._refill
         self.streamer = Streamer(self.cfg, staging)
         self.mesh = mesh_post.MeshAccumulator(vertices_merging_threshold)
         self.gs_container = None
@@ -176,6 +179,11 @@ class GeoWrapper:
         self._normals = None
         self._weights = None
         self._high_free = self.cfg.num_blocks
+        # the camera's chunk when every block within its keep radius was
+        # last known resident (_bring_back), or None
+        self._near_chunk = None
+        # the times a frame's allocation ran the high heap dry (_refill)
+        self._refills = 0
         self.last_stats = None
         self._warned_cut = False
         self.mesh_stats = {}     # the last extractMesh's figures
@@ -324,7 +332,14 @@ class GeoWrapper:
         from the upload of the pose and the frame on.  The first frame
         whose window the cap (max_active_blocks) cut warns (a
         RuntimeWarning, once per wrapper); last_stats' window_cut counts
-        the entries each frame left out."""
+        the entries each frame left out; streamed_out,
+        streamed_out_voxels, streamed_in, stream_clashed, stream_joined,
+        stream_ingest_ms and stream_refills count the streaming the frame
+        ran, before its step and within it (_stream_counts)."""
+        st = self.streamer
+        marks = (len(st.out_events), len(st.in_events), len(st.joined),
+                 self._refills)
+        self._bring_back()
         if self._high_free <= P.STREAM_THRESHOLD * self.cfg.num_blocks:
             self._stream()
         # setPointCloud and setDepthImage each clear the other's input
@@ -356,6 +371,7 @@ class GeoWrapper:
                     self.state, stats = pipeline.integrate_rgbd(
                         self.cfg, self.state, cam, depth, rgb)
             stats["host_syncs"] = since(syncs0)
+            stats.update(self._stream_counts(*marks))
             self.last_stats = stats
             if stats["window_cut"] and not self._warned_cut:
                 self._warned_cut = True
@@ -375,42 +391,168 @@ class GeoWrapper:
             if self.viewer_active:
                 self._viewer_mesh_tick()
 
+    def _protect_radius(self) -> float:
+        """The radius about the camera within which a frame can change a
+        block (eviction measures from a block's corner).  A spherical
+        sensor's is its reach (ops/integrate.py::sensor_reach, beyond
+        which no voxel changes) plus a block's diagonal.  A pinhole
+        camera's covers the whole frustum: a wall point at max_depth near
+        the image corner lies max_depth * |(1, tanx, tany)| from the
+        camera, beyond the reference's max_depth radius, and +0.5 m
+        absorbs the truncation band and the block-corner distance; and
+        it covers starvation's z-buffer, which takes any voxel seen in
+        the image from a window block whose centre lies up to
+        max_depth + 1.8 block sides deep (ops/integrate.py::
+        blocks_in_frustum_approx), so up to 3.5 voxel diagonals deeper,
+        and a block diagonal from the block's corner: at 1 cm voxels the
+        first bound holds it, at 5 cm the second is wider."""
+        c = self.camera
+        side = P.SDF_BLOCK_SIZE * self.cfg.virtual_voxel_size
+        if c.model == C.SPHERICAL:
+            return I.sensor_reach(self.cfg) + math.sqrt(3.0) * side
+        tanx = c.cols / (2.0 * c.fx)           # f32, as the reference
+        tany = c.rows / (2.0 * c.fy)
+        frustum = float(c.max_depth * torch.sqrt(1.0 + tanx * tanx
+                                                 + tany * tany) + 0.5)
+        # the image's widest ray, a pixel beyond its edge
+        tx = (max(float(c.cx), c.cols - float(c.cx)) + 1.0) / float(c.fx)
+        ty = (max(float(c.cy), c.rows - float(c.cy)) + 1.0) / float(c.fy)
+        deep = (float(c.max_depth) + 1.8 * side
+                + 3.5 * math.sqrt(3.0) * self.cfg.virtual_voxel_size)
+        starve = deep * math.sqrt(1.0 + tx * tx + ty * ty) + math.sqrt(
+            3.0) * side
+        return max(frustum, starve)
+
+    def _near(self):
+        """(the camera's chunk key, that chunk's centre, the keep radius
+        about the centre): R + chunk_radius, R the protect radius, so that
+        every block within R of any camera position in the chunk lies
+        within it."""
+        grid = self.streamer.grid
+        key = tuple(int(k) for k in grid.world_to_chunk(self.curr_trans))
+        return (key, grid.chunk_to_world(key),
+                self._protect_radius() + grid.chunk_radius)
+
+    def _bring_back(self):
+        """Stream-in ahead of the frame (PORT_NOTES.md P72): when the host
+        grid holds blocks (or a stream-out job is in flight) and the camera
+        has entered another chunk, join the job, then pop every host chunk
+        that can hold a block within the keep radius of the chunk's centre
+        (a chunk centre within keep + chunk_radius), whatever the heap;
+        where those blocks would bring the free high heap to the watermark,
+        the trigger streams out, after the pop, so they find room; then
+        they go in.  The frame then finds resident every block it can
+        touch, and no key the host holds is allocated fresh.  The test is
+        the host's, over the grid's keys: with nothing near, no device work
+        runs; with an empty grid, not even that."""
+        st = self.streamer
+        if not st.holds():
+            return
+        key, centre, keep = self._near()
+        if key == self._near_chunk:
+            return
+        self._near_chunk = key
+        st.join()
+        # popped before the eviction, so that the blocks this event evicts
+        # (beyond keep) wait in the grid for a later chunk
+        with stage("stream.in"):
+            groups = st.grid.pop_groups_in_sphere(
+                centre, keep + 2.0 * st.grid.chunk_radius)
+        if not groups:
+            return
+        # the high blocks they take: a row each res-0 block, and a row per
+        # 8 res-1 blocks the low heap cannot hold
+        n = sum(g["res"].shape[0] for g in groups)
+        n1 = sum(int((g["res"] == 1).sum()) for g in groups)
+        rows = n - n1 + max(0, -(-(n1 - self.state.table.low_count)
+                                 // P.OCTREE_BRANCHING_FACTOR))
+        if (self._high_free - rows
+                <= P.STREAM_THRESHOLD * self.cfg.num_blocks):
+            self._evict(rows)
+        with self.streaming_profiler.event():
+            self.state = st.stream_in_blocks(self.state, groups)
+            pipeline.mark_streamed_in(self.cfg, self.state, self.camera,
+                                      st.filled_slots)
+        self._write_streaming_profile()
+        # a host int, fresh after the stream-in (ROADMAP C3)
+        self._high_free = self.state.table.high_count
+
     def _stream(self):
         """The stream trigger (geowrapper.cpp:137-138): a budgeted eviction
         of the farthest blocks recovers the free high heap towards
-        STREAM_TARGET in one event (mrhash_tpu's plan_evictions), then the
-        host chunks near the camera come back, marked to take their
-        coarsening decision again (core/pipeline.py::mark_streamed_in).  A
-        pinhole camera's protect
-        radius covers the whole frustum: a wall point at max_depth near
-        the image corner lies max_depth * |(1, tanx, tany)| from the
-        camera, beyond the reference's max_depth radius; +0.5 m absorbs
-        the block-corner distance.  A spherical sensor's is its reach
-        (ops/integrate.py::sensor_reach, beyond which no voxel changes)
-        plus a block's diagonal, since eviction measures from the block's
-        corner.  Only the plan, the gather and the clear run here; the
-        copy to the host and the ingest overlap the next frames, and the
-        next trigger joins them (PORT_NOTES.md P37)."""
-        need = int(P.STREAM_TARGET * self.cfg.num_blocks) - self._high_free
+        STREAM_TARGET in one event (mrhash_tpu's plan_evictions).  The
+        eviction spares every block within the keep radius of the centre of
+        the camera's chunk (_near), so the frames up to the next chunk find
+        resident every block they can touch; the host chunks come back in
+        _bring_back, ahead of the frame, and not here.  Only the plan, the
+        gather and the clear run here; the copy to the host and the ingest
+        overlap the next frames, and the next trigger or chunk joins them
+        (PORT_NOTES.md P37)."""
+        self._evict(0)
+
+    def _evict(self, incoming):
+        """_stream's event, with `incoming`, the high blocks a stream-in or
+        the frame's allocation is about to take, counted as taken."""
+        need = (int(P.STREAM_TARGET * self.cfg.num_blocks) - self._high_free
+                + incoming)
         need = min(need, 4096, self.streamer.staging)
-        c = self.camera
-        if c.model == C.SPHERICAL:
-            protect = I.sensor_reach(self.cfg) + math.sqrt(3.0) * (
-                P.SDF_BLOCK_SIZE * self.cfg.virtual_voxel_size)
-        else:
-            tanx = c.cols / (2.0 * c.fx)           # f32, as the reference
-            tany = c.rows / (2.0 * c.fy)
-            protect = float(c.max_depth * torch.sqrt(1.0 + tanx * tanx
-                                                     + tany * tany) + 0.5)
+        key, centre, keep = self._near()
         with self.streaming_profiler.event():
-            self.state = self.streamer.stream(self.state, self.curr_trans,
-                                              protect, budget=max(need, 0),
-                                              asynchronous=True)
-            pipeline.mark_streamed_in(self.cfg, self.state, c,
-                                      self.streamer.filled_slots)
-        self.streaming_profiler.write(self.streamer.grid.num_blocks())
+            self.state = self.streamer.stream_out(self.state, centre, keep,
+                                                  budget=max(need, 0),
+                                                  asynchronous=True)
+            # an evicted res-1 block frees a low id, not a row: the res-1
+            # blocks pack into fewer rows, and the rest go back to the high
+            # heap, which the watermark reads
+            repack_low(self.state)
+        self._write_streaming_profile()
+        # every block within the chunk's keep radius is resident: the grid
+        # held nothing before, or _bring_back brought it back this frame
+        self._near_chunk = key
         # a host int, fresh after the stream (ROADMAP C3)
         self._high_free = self.state.table.high_count
+
+    def _write_streaming_profile(self):
+        """The streaming profiler's line, with the host grid's block count,
+        only when it is on: the count takes the grid's lock, which the
+        worker holds while it ingests the stream-out just issued, so
+        reading it would make every stream-out wait for its own ingest."""
+        if self.streaming_profiler.enabled:
+            self.streaming_profiler.write(self.streamer.grid.num_blocks())
+
+    def _refill(self):
+        """MapState.refill: a frame's allocation ran the high heap dry (a
+        frame that turns a corner can meet more fresh ground than the
+        watermark leaves free).  The trigger streams out, the frame's
+        allocation cap counted as taken, since eviction spares every block
+        the frame can touch; True where the heap gained blocks."""
+        before = self.state.table.high_count
+        self._refills += 1
+        self._evict(self.cfg.max_alloc_per_frame)
+        return self.state.table.high_count > before
+
+    def _stream_counts(self, n_out, n_in, n_joined, n_refills):
+        """The streaming since the marks (the lengths of the Streamer's
+        out_events, in_events and joined, and the refills): streamed_out
+        and streamed_out_voxels, the blocks the trigger evicted and their
+        voxels (512 a res-0 block, 64 a res-1 block); streamed_in, the
+        blocks inserted back; stream_clashed, the host blocks that found
+        their key resident (an error: each is kept in the grid);
+        stream_joined and stream_ingest_ms, the asynchronous stream-out
+        events the frame joined and the worker's ingest time of them;
+        stream_refills, the times the frame's allocation ran the high heap
+        dry and streamed out within the step (_refill).  Host numbers, no
+        device read."""
+        st = self.streamer
+        out, joined = st.out_events[n_out:], st.joined[n_joined:]
+        ins = st.in_events[n_in:]
+        return dict(streamed_out=sum(e["blocks"] for e in out),
+                    streamed_out_voxels=sum(e["voxels"] for e in out),
+                    streamed_in=sum(e["inserted"] for e in ins),
+                    stream_clashed=sum(e["clashed"] for e in ins),
+                    stream_joined=len(joined),
+                    stream_ingest_ms=sum(e["ingest_ms"] for e in joined),
+                    stream_refills=self._refills - n_refills)
 
     # ------------------------------------------------------------------ meshing
     def _extract_resident(self, state=None, owned=None, stats=None):
@@ -546,6 +688,7 @@ class GeoWrapper:
         blocks the device hash dropped and the batches over budget (each
         of the last two also printed as a warning)."""
         self.state = self.streamer.stream_all_out(self.state)
+        self._near_chunk = None
         self.mesh.reset()
         ph = self.mesh_stats
         ph.update(out_s=time.perf_counter() - t_start, insert_s=0.0,
@@ -651,6 +794,7 @@ class GeoWrapper:
     def streamAllOut(self):
         self.state = self.streamer.stream_all_out(self.state)
         self._high_free = self.state.table.high_count
+        self._near_chunk = None
 
     def clearBuffers(self):
         """geowrapper.cpp clearBuffers: evict + drop the host grid."""
@@ -671,6 +815,7 @@ class GeoWrapper:
         """Replace the host chunk grid with a checkpoint's; the blocks come
         back to the device as the camera nears them."""
         self.streamer.deserialize_grid(filename)
+        self._near_chunk = None
 
     # ------------------------------------------------------------------ getters
     def getHashNumBuckets(self):
@@ -754,8 +899,10 @@ class GeoWrapper:
         self.cfg = cfg
         self.state = make_state(cfg.num_blocks, cfg.num_buckets or None,
                                 self.device)
+        self.state.refill = self._refill
         self.streamer = Streamer(cfg, staging)
         self._high_free = cfg.num_blocks
+        self._near_chunk = None
         self.last_stats = None
 
     def setNumSdfBlocks(self, n):

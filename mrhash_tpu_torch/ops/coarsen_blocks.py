@@ -32,7 +32,8 @@ from mrhash_tpu_torch.core.state import (LANES, MapConfig, VoxelPool,
 from mrhash_tpu_torch.ops import alloc_blocks as AB
 from mrhash_tpu_torch.ops import cuda_lib
 from mrhash_tpu_torch.ops import hashtable as H
-from mrhash_tpu_torch.utils.profiler import COUNTS, host_list, pick, put
+from mrhash_tpu_torch.utils.profiler import (COUNTS, host_list, nonzero,
+                                             pick, put)
 
 _p = cuda_lib.ptr
 FIELDS = VoxelPool.FIELDS
@@ -53,7 +54,8 @@ def select(cfg, table, slots, bpos, decide):
     keys i32[k,3], fptr i32[k], fres i32[k], stats i32[4]), k =
     min(max_coarsen_per_frame, A): the served entries' key rows, ptrs and
     res in window order (rows past the count not written), and in stats
-    the served count and the heaps' new free counts, all on the card;
+    the served count, the heaps' new free counts and the decisions the
+    cap left unserved, all on the card;
     the table is updated in place but for its Python counts."""
     dev = decide.device
     a = decide.shape[0]
@@ -123,19 +125,24 @@ def scatter(pool, stage, was_new, nptr):
 
 
 def coarsen(cfg: MapConfig, table: H.HashTable, pool: VoxelPool, slots,
-            bpos, decide):
+            bpos, decide, counts=None):
     """checkVarSDFKernel + reallocBlocks (voxel_data_structures.cu:
     1856-2069), in place: coarsen_by_variance_ref's semantics.  CPU
     tensors take the twin coarsen_by_variance_ref; CUDA tensors kernels
     K10-K12 with the insert through K9: K10, its host read, K11, K9 (with
     its host read), K12.  Returns (new_slots i64[n], new_mask bool[n],
-    freed bool[A]) as the twin's."""
+    freed bool[A]) as the twin's; `counts`, a dict, gets "unserved", the
+    decisions max_coarsen_per_frame left for a later frame (a host int
+    from the host read either takes)."""
     if not cuda_lib.on_card(decide.device):
-        return coarsen_by_variance_ref(cfg, table, pool, slots, bpos, decide)
+        return coarsen_by_variance_ref(cfg, table, pool, slots, bpos, decide,
+                                       counts)
     freed, keys, fptr, fres, stats = select(
         cfg, table, slots.contiguous(), bpos.contiguous(),
         decide.contiguous())
-    n, table.high_count, table.low_count, _ = host_list(stats)
+    n, table.high_count, table.low_count, unserved = host_list(stats)
+    if counts is not None:
+        counts["unserved"] = unserved
     if n == 0:
         none = torch.empty((0,), dtype=torch.int64, device=decide.device)
         return none, none.bool(), freed
@@ -147,7 +154,8 @@ def coarsen(cfg: MapConfig, table: H.HashTable, pool: VoxelPool, slots,
 
 
 def coarsen_by_variance_ref(cfg: MapConfig, table: H.HashTable,
-                            pool: VoxelPool, slots, bpos, decide):
+                            pool: VoxelPool, slots, bpos, decide,
+                            counts=None):
     """checkVarSDFKernel + reallocBlocks (voxel_data_structures.cu:
     1856-2069), in place, in torch ops on any device: the plain twin of
     kernels K10-K12, and what the CPU runs.
@@ -161,8 +169,12 @@ def coarsen_by_variance_ref(cfg: MapConfig, table: H.HashTable,
     Returns (new_slots i64[u], new_mask bool[u], freed bool[A]): the table
     slots of the coarse blocks, which of them were inserted, and the window
     entries freed (later passes over this frame's window skip them: their
-    slots are free and their rows cleared, or already a coarse block's)."""
-    sel = H.compact_indices(decide, int(cfg.max_coarsen_per_frame))
+    slots are free and their rows cleared, or already a coarse block's);
+    `counts`, a dict, gets "unserved" as coarsen's."""
+    decided = nonzero(decide)
+    sel = decided[:int(cfg.max_coarsen_per_frame)]
+    if counts is not None:
+        counts["unserved"] = decided.numel() - sel.numel()
     ptrs, fres = H.free_slots(table, slots[sel])   # window slots: occupied
     rows = ptrs.to(torch.int64) // LANES             # res-0 rows
     fine = ({f: getattr(pool, f)[rows] for f in VoxelPool.FIELDS}

@@ -109,21 +109,32 @@ def blocks_within(cfg: MapConfig, cam: C.Camera, block_pos, reach: float):
 # ---------------------------------------------------------------------------
 
 def alloc_blocks(cfg: MapConfig, table: H.HashTable, keys, valid,
-                 frame: int, scratch: AB.DedupScratch | None = None):
+                 frame: int, scratch: AB.DedupScratch | None = None,
+                 refill=None):
     """allocBlocks (voxel_data_structures.cu:873-922): the salted dedup of
     the candidates, then the insert of the served keys, updating `table`
     in place.  `scratch`, given, is the frame's scratch that the
     candidates' walk already filled (alloc_blocks.alloc_candidates_*(...,
-    scratch=)).  Returns host ints (submitted, inserted): the deduped keys
-    handed to insert, and the blocks drawn from the heaps for them.
+    scratch=)).  Where the insert leaves the high heap empty, a key may
+    have found it dry: `refill` (MapState.refill, or None), called, frees
+    high blocks (a map that streams evicts far blocks) and tells whether
+    it freed any, and the keys go in again, present ones found, until the
+    heap holds a block after the insert or nothing more is freed.
+    Returns host ints (submitted, inserted): the deduped keys handed to
+    insert, and the blocks drawn from the heaps for them.
     ops/alloc_blocks.py picks the kernels (K7's scatter where the walk did
     not do it, K8 and K9 with one host read) or their twins."""
-    free0 = table.high_count + table.low_count
     with stage("alloc.dedup"):
         ukeys, stats = AB.dedup(cfg, keys, valid, frame, scratch)
     with stage("alloc.insert"):
+        free0 = table.high_count + table.low_count
         submitted = AB.insert(table, ukeys, 0, stats)["count"]
-    return submitted, free0 - table.high_count - table.low_count
+        drawn = free0 - table.high_count - table.low_count
+        while table.high_count == 0 and refill is not None and refill():
+            free0 = table.high_count + table.low_count
+            AB.insert(table, ukeys, 0, stats)
+            drawn += free0 - table.high_count - table.low_count
+    return submitted, drawn
 
 
 # ---------------------------------------------------------------------------
@@ -514,12 +525,14 @@ def garbage_collect_sweep(cfg: MapConfig, table: H.HashTable,
     On RGB-D starve frames the flags predate the starvation, so a block
     starved to weight 0 is freed one frame later (the reference's
     deviation D12); the LiDAR step reads the pool after its starve, as the
-    reference's does.  Returns the number of blocks freed (a host int)."""
-    didx = H.compact_indices(decision, int(cfg.max_gc_free_per_frame))
+    reference's does.  Returns host ints (the blocks freed, the decisions
+    the cap left for a later frame)."""
+    decided = nonzero(decision)
+    didx = decided[:int(cfg.max_gc_free_per_frame)]
     if didx.numel():
         ptrs, res = H.free_slots(table, slots[didx])
         clear_blocks(pool, ptrs, res)
-    return int(didx.numel())
+    return int(didx.numel()), int(decided.numel() - didx.numel())
 
 
 # ---------------------------------------------------------------------------

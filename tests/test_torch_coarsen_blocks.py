@@ -228,17 +228,20 @@ def _step(cfg, state, twin, slots, bpos, decide, exact=("weight", "rgbp")):
     the pool's largest sdf and sumsq gaps."""
     n0 = {k: COUNTS[k] for k in KERNELS}
     s0 = COUNTS[SYNCS]
+    counts, counts_ref = {}, {}
     got = CB.coarsen(cfg, state.table, state.pool, slots, bpos,
-                                decide)
+                                decide, counts)
     syncs = COUNTS[SYNCS] - s0
     launches = {k: COUNTS[k] - n0[k] for k in KERNELS}
     ref = CB.coarsen_by_variance_ref(cfg, twin.table, twin.pool, slots, bpos,
-                                    decide)
+                                    decide, counts_ref)
     torch.cuda.synchronize()
     for name, g, r in zip(("new_slots", "new_mask", "freed"), got, ref):
         assert torch.equal(g, r), name
     gaps = _same_state(state, twin, exact)
     served = int(got[2].sum())
+    # the decisions the cap left for a later frame, from K10's own read
+    assert counts == counts_ref == dict(unserved=int(decide.sum()) - served)
     assert syncs == (2 if served else 1), syncs
     want = dict(coarsen_select=1, coarsen_merge=int(served > 0),
                 coarsen_scatter=int(served > 0 and cfg.coarsen_downsample),

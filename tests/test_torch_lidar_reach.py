@@ -230,14 +230,15 @@ def streaming_drive(monkeypatch, pinhole=False):
     """The drive with a pool of 2^8 blocks, which reaches its watermark
     near scan 8, and a split of 64 high blocks when the low heap runs
     short; with `pinhole` the stream trigger gets the radius a pinhole
-    camera's would (~34 m at these intrinsics).  Returns the map, the
-    stream counts and each stream-out's (radius, metres to the nearest
-    block it evicted, free high blocks after it, resident entries after
-    it)."""
+    camera's would (~34 m at these intrinsics).  The trigger measures
+    from the centre of the sensor's chunk.  Returns the map, the stream
+    counts and each stream-out's (radius, metres from the chunk's centre
+    to the nearest block it evicted, free high blocks after it, resident
+    entries after it)."""
     conf = drive_conf(num_blocks=1 << 8, max_active_blocks=1 << 11,
                       low_split_chunk=64)
     events, nearest_out = [], []
-    plan, stream = streaming.plan_evictions, streaming.Streamer.stream
+    plan, stream = streaming.plan_evictions, streaming.Streamer.stream_out
 
     def planned(cfg, table, cam_pos, radius, *a, **k):
         pos, ptr, res = plan(cfg, table, cam_pos, radius, *a, **k)
@@ -250,16 +251,17 @@ def streaming_drive(monkeypatch, pinhole=False):
             fx, fy, _, _ = street_frames().intrinsics
             tanx = conf["sensor"]["cols"] / (2 * fx)
             tany = conf["sensor"]["rows"] / (2 * fy)
-            radius = RANGE * math.sqrt(1 + tanx ** 2 + tany ** 2) + 0.5
+            radius = (RANGE * math.sqrt(1 + tanx ** 2 + tany ** 2) + 0.5
+                      + self.grid.chunk_radius)
         state = stream(self, state, cam_pos, radius, *a, **k)
         events.append((radius, nearest_out[-1], state.table.high_count,
                        int((state.table.ptr != P.FREE_ENTRY).sum())))
         return state
     monkeypatch.setattr(streaming, "plan_evictions", planned)
-    monkeypatch.setattr(streaming.Streamer, "stream", streamed)
+    monkeypatch.setattr(streaming.Streamer, "stream_out", streamed)
     got, streams, _, _ = run(conf, street_frames(), N_DRIVE)
     monkeypatch.setattr(streaming, "plan_evictions", plan)
-    monkeypatch.setattr(streaming.Streamer, "stream", stream)
+    monkeypatch.setattr(streaming.Streamer, "stream_out", stream)
     return conf, got, streams, events
 
 
@@ -271,10 +273,12 @@ def test_spherical_stream_radius_is_reach_plus_a_block_diagonal(
     assert streams["blocks_out"] > 0
     assert_equal_maps(got, reference(conf, street_frames(), N_DRIVE))
     diag = math.sqrt(3.0) * P.SDF_BLOCK_SIZE * 0.2
+    chunk = math.sqrt(3.0) / 2                  # a 1 m chunk's half diagonal
     watermark = P.STREAM_THRESHOLD * conf["map"]["num_blocks"]
     for radius, near, free, _ in events:
-        assert radius == pytest.approx(REACH + diag)
-        assert near > REACH                     # nothing within reach
+        assert radius == pytest.approx(REACH + diag + chunk)
+        # nothing within reach of any place in the sensor's chunk
+        assert near > REACH + chunk
         assert free > watermark                 # each event recovers
 
 
@@ -308,12 +312,12 @@ def test_a_block_streamed_back_in_decides_again(tmp_path, monkeypatch):
     assert gw.streamer.grid.num_blocks() > 0
     resident = gw.state.table.ptr != P.FREE_ENTRY
     gw.state.coarsen_pending.zero_()
-    # the stream trigger back at the start of the street, with no
-    # stream-out: the blocks near it come back in
+    # the stream-in ahead of a scan back at the start of the street, with
+    # no stream-out: the blocks near it come back in
     monkeypatch.setattr(gw.streamer, "stream_out",
                         lambda state, *a, **k: state)
     gw.curr_trans = np.zeros(3, np.float32)
-    gw._stream()
+    gw._bring_back()
     back = (gw.state.table.ptr != P.FREE_ENTRY) & ~resident
     assert int(back.sum()) > 0
     assert torch.equal(gw.state.coarsen_pending, back)

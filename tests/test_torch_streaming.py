@@ -684,9 +684,16 @@ def _quat(rot):
 
 def test_tube_walk_matches_reference():
     """GeoWrapper(device="cpu") down the tube and back against the
-    reference's pipeline run op by op, with its Streamer driven by the same
-    trigger rule on fresh counts: the same stream-out events, and after
-    streamAllOut the same host grid per key."""
+    reference's pipeline run op by op, with its Streamer driven by the
+    port's rule on fresh counts (GeoWrapper._bring_back and ._stream): on
+    entering a chunk, the host chunks near its centre come back ahead of
+    the frame, after a stream-out where they would bring the heap to the
+    watermark; at the watermark, the farthest blocks beyond the keep
+    radius of the chunk's centre go out.  The same stream-out events, and
+    after streamAllOut the same host grid per key.  The port's stream-out
+    within a frame whose allocation runs the heap dry (MapState.refill)
+    has no counterpart in the reference's frame step, so it is off here
+    (tests/test_torch_stream_ring.py holds it)."""
     import jax
     import jax.numpy as jnp
     from mrhash_tpu.core import pipeline as JP
@@ -698,6 +705,7 @@ def test_tube_walk_matches_reference():
     rgb = np.random.default_rng(2).integers(0, 255, (T_ROWS, T_COLS, 3)
                                             ).astype(np.uint8)
     gw = GeoWrapper(**T_KW, profiling=False, device="cpu")
+    gw.state.refill = None
     gw.setCamera(T_F, T_F, T_COLS / 2 - 0.5, T_ROWS / 2 - 0.5, T_ROWS,
                  T_COLS, 0.01, T_MAXD)
     for t, rot, d in frames:
@@ -718,19 +726,40 @@ def test_tube_walk_matches_reference():
         alloc_tile=gw.cfg.alloc_tile)
     cam0 = JC.make_camera(T_F, T_F, T_COLS / 2 - 0.5, T_ROWS / 2 - 0.5,
                           T_ROWS, T_COLS, 0.01, T_MAXD)
-    # the reference GeoWrapper's protect radius (geowrapper.py:519-524)
-    tanx, tany = T_COLS / (2.0 * cam0.fx), T_ROWS / (2.0 * cam0.fy)
-    protect = float(cam0.max_depth * np.sqrt(1.0 + tanx * tanx
-                                             + tany * tany) + 0.5)
+    # the port's keep radius about the centre of the camera's chunk
     jst = JStreamer(jcfg, gw.streamer.staging)
-    state, high_free, events = jmake_state(nb), nb, []
+    grid = jst.grid
+    keep = gw._protect_radius() + grid.chunk_radius
+    state, high_free, events, near = jmake_state(nb), nb, [], None
+    thr = P.STREAM_THRESHOLD * nb
+
+    def stream_out(state, high_free, centre, incoming=0):
+        need = min(int(P.STREAM_TARGET * nb) - high_free + incoming, 4096,
+                   jst.staging)
+        state = jst.stream_out(state, centre, keep, budget=max(need, 0))
+        events.append(jst.out_stats["blocks"])
+        return state, int(state.table.high_count)
+
     for t, rot, d in frames:
-        if high_free <= P.STREAM_THRESHOLD * nb:
-            need = min(int(P.STREAM_TARGET * nb) - high_free, 4096,
-                       jst.staging)
-            state = jst.stream(state, t, protect, budget=max(need, 0))
-            events.append(jst.out_stats["blocks"])
-            high_free = int(state.table.high_count)
+        key = tuple(int(k) for k in grid.world_to_chunk(t))
+        centre = grid.chunk_to_world(key)
+        if grid.chunks and key != near:
+            near = key
+            near_keys = [k for k in grid.chunks
+                         if np.linalg.norm(grid.chunk_to_world(k) - centre)
+                         <= keep + grid.chunk_radius]
+            if near_keys:
+                rows = sum(grid.chunks[k]["pos"].shape[0]
+                           for k in near_keys)
+                if high_free - rows <= thr:
+                    state, high_free = stream_out(state, high_free, centre,
+                                                  rows)
+                state = jst.stream_in(state, centre,
+                                      keep + 2 * grid.chunk_radius)
+                high_free = int(state.table.high_count)
+        if high_free <= thr:
+            state, high_free = stream_out(state, high_free, centre)
+            near = key
         with jax.disable_jit():
             state, stats = JP.integrate_rgbd(
                 jcfg, state, JC.with_pose(cam0, jnp.asarray(rot),

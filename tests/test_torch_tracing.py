@@ -21,7 +21,7 @@ torch.profiler (CPU activity) and hold:
   where res0_blocks falls; on the moved scan a window smaller than the
   map and coarsen_carried > 0; window_cut 0; host_syncs a positive int,
   equal on a second run of the same frames without the profiler, as are
-  the other keys.
+  the other keys; the stream counters 0.
 
 The `gpu` cases (`python -m pytest --noconftest -m gpu
 tests/test_torch_tracing.py` on the card) hold host_syncs, frame by
@@ -54,7 +54,13 @@ from mrhash_tpu_torch.utils.profiler import COUNTS
 OLD_KEYS = {"occupied_blocks", "occupied_total", "high_free", "low_free",
             "frame", "unserved_blocks", "res0_blocks"}
 NEW_KEYS = {"alloc_keys", "alloc_new", "coarsened", "gc_freed",
-            "window_cut", "coarsen_carried", "coarsen_syncs", "host_syncs"}
+            "window_cut", "coarsen_carried", "coarsen_syncs", "host_syncs",
+            "coarsen_unserved", "gc_unserved"}
+# the streaming of the frame (GeoWrapper._stream_counts): none on these
+# maps, which never reach the stream watermark
+STREAM_KEYS = {"streamed_out", "streamed_out_voxels", "streamed_in",
+               "stream_clashed", "stream_joined", "stream_ingest_ms",
+               "stream_refills"}
 # span: its parent
 SPANS = {
     "rgbd": {"compute": None, "compute.upload": "compute",
@@ -179,10 +185,11 @@ def test_spans_and_counters_of_the_frame_step(path, tmp_path, monkeypatch):
 
     prev = 0
     for i, st in enumerate(stats):
-        keys = OLD_KEYS | NEW_KEYS | (
+        keys = OLD_KEYS | NEW_KEYS | STREAM_KEYS | (
             {"visited_keys", "distinct_keys"} if path == "points" else set())
         assert set(st) == keys, set(st) ^ keys
         assert all(type(st[k]) is int for k in NEW_KEYS), st
+        assert not any(st[k] for k in STREAM_KEYS), st
         assert st["alloc_keys"] >= st["alloc_new"] >= 0
         assert st["host_syncs"] > 0
         assert st["occupied_total"] - prev == st["alloc_new"] - st["gc_freed"]
